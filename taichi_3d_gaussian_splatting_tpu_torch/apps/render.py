@@ -1,0 +1,167 @@
+"""Headless batch renderer: scene file + pose list -> PNG frames.
+
+Port of ``taichi_3d_gaussian_splatting_tpu/apps/render.py``. Poses come
+from a .pt file (torch.save'd N x 4 x 4 SE(3), camera->world). Scenes are
+.parquet files or graphdeco .ply files (the latter need no pandas).
+``--portrait_mode`` flips the default landscape preset.
+
+Each frame runs ``rasterize(..., rgb_only=True)`` on the card: the tile
+keys are sized to the frame's exact total, so unlike the JAX renderer no
+key capacity is probed up front.
+
+    python -m taichi_3d_gaussian_splatting_tpu_torch.apps.render \\
+        --parquet_path scene.ply --poses poses.pt --output_prefix frames
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+from taichi_3d_gaussian_splatting_tpu_torch.models.scene import (
+    SceneConfig,
+    merge_scenes,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
+    Camera,
+    RasterizerConfig,
+    pin_f32_matmul,
+    rasterize,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import se3_to_qt
+
+TILE = 32
+
+
+@dataclass
+class RendererConfig:
+    """Image size and intrinsics of the renderer (the size is cropped down
+    to whole tiles, top-left anchored, so K is unchanged)."""
+
+    parquet_paths: List[str] = field(default_factory=list)
+    image_height: int = 544
+    image_width: int = 976
+    camera_intrinsics: Optional[np.ndarray] = None
+    rgb_only: bool = True
+    data_parallel: bool = False
+    tile_parallel: bool = False
+
+    def __post_init__(self):
+        if self.camera_intrinsics is None:
+            self.camera_intrinsics = np.asarray(
+                [[581.743, 0.0, 490.0], [0.0, 581.743, 273.0], [0.0, 0.0, 1.0]],
+                np.float32,
+            )
+
+    def set_portrait_mode(self):
+        self.image_height = 976
+        self.image_width = 544
+        self.camera_intrinsics = np.asarray(
+            [[1163.486, 0.0, 273.0], [0.0, 1163.486, 490.0], [0.0, 0.0, 1.0]],
+            np.float32,
+        )
+
+
+def load_scene(path: str, device) -> scene_lib.GaussianScene:
+    """A .ply or .parquet scene file, unpadded."""
+    config = SceneConfig(max_num_points_ratio=None)
+    if str(path).endswith(".ply"):
+        return scene_lib.from_ply(path, config, device=device)
+    return scene_lib.from_parquet(path, config, device=device)
+
+
+class GaussianPointRenderer:
+    """Renders every pose of a pose list with one scene on one device."""
+
+    def __init__(self, config: RendererConfig, poses: np.ndarray,
+                 device="cuda"):
+        if config.data_parallel or config.tile_parallel:
+            raise NotImplementedError(
+                "data-parallel and tile-parallel rendering are not ported "
+                "yet; they come with the multi-device slice (ROADMAP.md)")
+        self.config = config
+        self.device = torch.device(device)
+        self.height = config.image_height - config.image_height % TILE
+        self.width = config.image_width - config.image_width % TILE
+        pin_f32_matmul()
+        scenes = [load_scene(p, self.device) for p in config.parquet_paths]
+        self.scene = merge_scenes(scenes) if len(scenes) > 1 else scenes[0]
+        self.poses = torch.as_tensor(np.asarray(poses, np.float32),
+                                     device=self.device)  # (N, 4, 4)
+        self.camera = Camera(
+            K=torch.as_tensor(np.asarray(config.camera_intrinsics, np.float32),
+                              device=self.device),
+            width=self.width, height=self.height)
+        self.rcfg = RasterizerConfig(
+            near_plane=0.8, far_plane=1000.0, depth_to_sort_key_scale=100.0,
+            tile_size=TILE, rgb_only=config.rgb_only)
+
+    def render(self, q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) float image in [0, 1] of the camera pose (q xyzw, t)."""
+        s = self.scene
+        out = rasterize(s.xyz, s.features, s.invalid, q, t, self.camera,
+                        self.rcfg, sh_max_band=3, point_object_id=s.object_id)
+        return torch.clamp(out.rgb, 0.0, 1.0)
+
+    def frames(self):
+        """Yield (index, (H, W, 3) uint8 numpy frame) for every pose."""
+        qs, ts = se3_to_qt(self.poses)
+        for i in range(self.poses.shape[0]):
+            rgb = self.render(qs[i], ts[i])
+            yield i, torch.round(rgb * 255).to(torch.uint8).cpu().numpy()
+
+    def run(self, output_prefix: Path):
+        from PIL import Image
+
+        for i, frame in self.frames():
+            Image.fromarray(frame, "RGB").save(
+                Path(output_prefix) / f"frame_{i:03}.png")
+
+
+def load_poses_pt(path: str) -> np.ndarray:
+    """Load an (N, 4, 4) pose tensor saved with torch.save."""
+    return torch.load(path, map_location="cpu",
+                      weights_only=True).numpy().astype(np.float32)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--parquet_path", type=str, required=True, nargs="+",
+                        help="scene files (.parquet or graphdeco .ply)")
+    parser.add_argument("--poses", type=str, required=True,
+                        help=".pt (torch.save'd N x 4 x 4 camera->world)")
+    parser.add_argument("--output_prefix", type=str, required=True)
+    parser.add_argument("--portrait_mode", action="store_true", default=False)
+    parser.add_argument("--data_parallel", action="store_true", default=False)
+    parser.add_argument("--tile_parallel", action="store_true", default=False)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain versions "
+                        "of the kernels")
+    args = parser.parse_args(argv)
+
+    if args.poses.endswith(".json"):
+        raise NotImplementedError(
+            "dataset .json poses are not ported yet; they need the dataset "
+            "module of the training-loop slice (ROADMAP.md)")
+    if not args.poses.endswith(".pt"):
+        raise ValueError(
+            f"Unrecognized poses file format: {args.poses}, must be .pt")
+    config = RendererConfig(parquet_paths=list(args.parquet_path),
+                            data_parallel=args.data_parallel,
+                            tile_parallel=args.tile_parallel)
+    poses = load_poses_pt(args.poses)
+    if args.portrait_mode:
+        config.set_portrait_mode()
+    output_prefix = Path(args.output_prefix)
+    os.makedirs(output_prefix, exist_ok=True)
+    GaussianPointRenderer(config, poses, device=args.device).run(output_prefix)
+
+
+if __name__ == "__main__":
+    main()

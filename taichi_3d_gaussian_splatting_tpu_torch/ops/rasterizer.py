@@ -1,0 +1,225 @@
+"""The tile rasterizer, forward: attributes -> tile keys -> blend -> image.
+
+Port of the forward half of ``taichi_3d_gaussian_splatting_tpu/ops/
+rasterizer.py``:
+
+  compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid)
+  -> build_keys (frustum cull, tile bbox, expand_keys kernel, one stable
+     key sort, bucket_histogram kernel for the tile ranges)
+  -> blend_forward kernel -> _assemble (tiles -> image)
+
+This slice has no backward: ``rasterize`` refuses inputs that require
+grad rather than return an image with no gradient.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
+from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
+from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
+    compute_point_attributes,
+    frustum_cull_mask,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
+
+
+@dataclass(frozen=True)
+class RasterizerConfig:
+    """The JAX package's RasterizerConfig, field for field.
+
+    ``key_cap``, ``blend_chunk``, ``blend_strips``, ``candidate_mode``,
+    ``cand_scale`` and ``interpret`` size or steer the TPU kernels; they are
+    accepted so that one config serves both packages, and ignored here
+    (the key buffer is sized to each frame's exact total)."""
+
+    near_plane: float = 0.8
+    far_plane: float = 1000.0
+    depth_to_sort_key_scale: float = 100.0
+    rgb_only: bool = False
+    grad_color_factor: float = 5.0
+    grad_high_order_color_factor: float = 1.0
+    grad_s_factor: float = 0.5
+    grad_q_factor: float = 1.0
+    grad_alpha_factor: float = 20.0
+    tile_size: int = 32          # tile width in pixels
+    tile_h: Optional[int] = None # tile height; None = square
+    key_cap: int = 2 ** 21
+    extra_info: bool = True
+    slim: bool = False           # training fast path: blend rgb only
+    exact_tile_cull: bool = True # retire (point, tile) pairs whose max
+                                 # in-tile alpha < 1/255 (same output,
+                                 # shorter blend ranges)
+    blend_chunk: int = 128
+    blend_strips: int = 1
+    candidate_mode: str = "partition"
+    cand_scale: int = 1
+    pack_sort_colors: bool = False
+    interpret: bool = False
+    cull_pad_v_tiles: Optional[int] = None  # vertical cull pad override
+
+    def __post_init__(self):
+        if self.slim and self.rgb_only:
+            raise ValueError(
+                "slim is the training fast path (keeps backward payloads); "
+                "rgb_only is the inference fast path — pick one")
+        if self.tile_h is not None and self.tile_size % self.tile_h != 0:
+            raise ValueError(
+                f"tile_h={self.tile_h} must divide tile_size={self.tile_size}")
+        if self.pack_sort_colors:
+            raise NotImplementedError(
+                "pack_sort_colors (bf16 r/g sort payloads) is not ported yet; "
+                "it is listed for the render-apps slice in ROADMAP.md")
+
+
+class Camera(NamedTuple):
+    """Pinhole camera. Frame: x right, y down, z forward."""
+
+    K: torch.Tensor       # (3, 3) intrinsics
+    width: int
+    height: int
+
+
+class RasterizeOutput(NamedTuple):
+    rgb: torch.Tensor     # (H, W, 3)
+    depth: torch.Tensor   # (H, W) alpha-weighted normalized depth
+    alpha: torch.Tensor   # (H, W) accumulated opacity (1 - T_final)
+    count: torch.Tensor   # (H, W) number of blended splats per pixel
+
+
+class RawAttrs(NamedTuple):
+    """Inputs of the blend, all f32, dense over the N pool slots."""
+
+    uv: torch.Tensor       # (N, 2)
+    cov2d: torch.Tensor    # (N, 3) unfiltered (a, b, c)
+    conic: torch.Tensor    # (N, 4) filtered inverse + rescale
+    opacity: torch.Tensor  # (N,)
+    color: torch.Tensor    # (N, 3)
+    depth: torch.Tensor    # (N,)
+
+
+def _cfg_tile(cfg: RasterizerConfig) -> tuple:
+    """(tile_w, tile_h) of a config (tile_h=None means square)."""
+    th = cfg.tile_size if cfg.tile_h is None else cfg.tile_h
+    return (cfg.tile_size, th)
+
+
+def pin_f32_matmul() -> None:
+    """Keep f32 matmuls and convolutions in full f32 (no TF32). The render
+    path has no matmul of its own; the plain versions and the tests use
+    them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _tiles_to_image(tiles: torch.Tensor, tiles_x: int, tiles_y: int, tile):
+    """(num_tiles, tile_w*tile_h, C) -> (H, W, C)."""
+    tw, th = tiling.tile_wh(tile)
+    c = tiles.shape[-1]
+    img = tiles.reshape(tiles_y, tiles_x, th, tw, c)
+    return img.permute(0, 2, 1, 3, 4).reshape(tiles_y * th, tiles_x * tw, c)
+
+
+def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
+                      camera: Camera, sh_max_band=3,
+                      point_object_id: Optional[torch.Tensor] = None):
+    """Project pool slots to screen space. ``q/t_pointcloud_camera`` is the
+    camera pose in the world frame, shapes (4,)/(3,). Returns (RawAttrs,
+    per-axis cull radius (N, 2))."""
+    if point_object_id is not None and q_pointcloud_camera.dim() == 2:
+        raise NotImplementedError(
+            "per-object (K, 4) poses are not ported yet; they come with the "
+            "poses slice (ROADMAP.md)")
+    q_pc = q_pointcloud_camera.reshape(4)
+    t_pc = t_pointcloud_camera.reshape(3)
+    q_cw, t_cw = inverse_qt(q_pc, t_pc)
+    attrs = compute_point_attributes(xyz, features, q_cw, t_cw, camera.K, t_pc,
+                                     sh_max_band)
+    raw = RawAttrs(uv=attrs.uv, cov2d=attrs.cov2d, conic=attrs.conic,
+                   opacity=attrs.opacity, color=attrs.color,
+                   depth=attrs.xyz_cam[:, 2])
+    return raw, attrs.radius_xy
+
+
+def attr_columns(raw: RawAttrs) -> torch.Tensor:
+    """(10, N) blend columns [u, v, conic a, b, c, log(rescale*opacity), r, g,
+    b, depth]. Rescale and opacity are sanitized BEFORE the log, so NaN
+    features blend as fully transparent (log(1e-37) = -85)."""
+    resc = torch.where(torch.isfinite(raw.conic[:, 3]), raw.conic[:, 3],
+                       torch.zeros_like(raw.conic[:, 3]))
+    op = torch.where(torch.isfinite(raw.opacity), raw.opacity,
+                     torch.zeros_like(raw.opacity))
+    logro = torch.log(torch.clamp_min(resc * op, 1e-37))
+    return torch.stack(
+        [raw.uv[:, 0], raw.uv[:, 1], raw.conic[:, 0], raw.conic[:, 1],
+         raw.conic[:, 2], logro, raw.color[:, 0], raw.color[:, 1],
+         raw.color[:, 2], raw.depth], dim=0)
+
+
+def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
+               cfg: RasterizerConfig):
+    """Tiling stage. Returns (keys, sorted (16, total) blend table, visible
+    mask)."""
+    visible = frustum_cull_mask(
+        raw.uv, raw.depth, invalid_mask, camera.width, camera.height,
+        cfg.near_plane, cfg.far_plane, _cfg_tile(cfg),
+        boundary_tiles_v=cfg.cull_pad_v_tiles)
+    keys, table = tiling.build_tile_keys_and_table(
+        raw.uv, raw.depth, radius, visible, camera.width, camera.height,
+        _cfg_tile(cfg), cfg.depth_to_sort_key_scale,
+        attr_cols=attr_columns(raw), exact_tile_cull=cfg.exact_tile_cull)
+    return keys, table, visible
+
+
+def _assemble(out_tiles, camera: Camera, cfg: RasterizerConfig):
+    tile = _cfg_tile(cfg)
+    tiles_x = camera.width // tile[0]
+    tiles_y = camera.height // tile[1]
+    if cfg.rgb_only or cfg.slim:
+        rgb = _tiles_to_image(out_tiles[..., 0:3], tiles_x, tiles_y, tile)
+        zero = torch.zeros(rgb.shape[:2], dtype=torch.float32,
+                           device=rgb.device)
+        return RasterizeOutput(rgb=rgb, depth=zero, alpha=zero, count=zero)
+    img = _tiles_to_image(out_tiles, tiles_x, tiles_y, tile)
+    return RasterizeOutput(
+        rgb=img[..., 0:3],
+        depth=img[..., 3] / torch.clamp_min(img[..., 4], 1e-6),
+        alpha=1.0 - img[..., 6],
+        count=img[..., 5],
+    )
+
+
+def rasterize(xyz: torch.Tensor, features: torch.Tensor,
+              invalid_mask: torch.Tensor, q_pointcloud_camera: torch.Tensor,
+              t_pointcloud_camera: torch.Tensor, camera: Camera,
+              cfg: RasterizerConfig, sh_max_band=3,
+              point_object_id: Optional[torch.Tensor] = None,
+              return_num_keys: bool = False):
+    """Render the scene into a camera view (forward only). Requires
+    camera.width/height divisible by the tile. With ``return_num_keys`` also
+    returns the number of tile keys of this frame."""
+    if xyz.requires_grad or features.requires_grad:
+        raise NotImplementedError(
+            "rasterize has no backward yet (it comes with the blend_backward "
+            "and segment_reduce kernels); pass tensors without requires_grad")
+    tile = _cfg_tile(cfg)
+    if camera.width % tile[0] or camera.height % tile[1]:
+        raise ValueError(f"image {camera.width}x{camera.height} is not a "
+                         f"multiple of the {tile[0]}x{tile[1]} tile")
+    pin_f32_matmul()
+    with torch.no_grad():
+        raw, radius = compute_raw_attrs(
+            xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera,
+            sh_max_band, point_object_id)
+        keys, table, _ = build_keys(raw, radius, invalid_mask, camera, cfg)
+        out_tiles = blend.blend_forward(
+            table, keys.tile_start, keys.tile_end, tile=tile,
+            tiles_x=camera.width // tile[0], tiles_y=camera.height // tile[1],
+            rgb_only=cfg.rgb_only or cfg.slim)
+        out = _assemble(out_tiles, camera, cfg)
+    if return_num_keys:
+        return out, keys.total
+    return out

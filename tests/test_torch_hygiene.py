@@ -1,0 +1,152 @@
+"""Rules of the port that no parity test covers: it never imports JAX or
+the JAX package, it imports without CUDA, its forward-only rasterizer
+refuses inputs that need gradients, and its kernel wrappers reject
+malformed tensors."""
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
+from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as tr
+from tests.torch_port_scenes import Q_ID, T_ID, make_K, make_scene
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "taichi_3d_gaussian_splatting_tpu_torch"
+BANNED = re.compile(r"^(jax|jaxlib|optax|taichi_3d_gaussian_splatting_tpu(?!_torch))(\.|$)")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_never_imports_jax():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT), m) for f in files
+           for m in _imported_modules(f) if BANNED.match(m)]
+    assert bad == []
+
+
+def test_banned_pattern_tells_the_packages_apart():
+    assert BANNED.match("taichi_3d_gaussian_splatting_tpu.ops.tiling")
+    assert BANNED.match("jax.numpy") and BANNED.match("optax")
+    assert not BANNED.match("taichi_3d_gaussian_splatting_tpu_torch.ops")
+    assert not BANNED.match("jaxtyping")
+
+
+def test_package_imports_without_cuda_or_jax():
+    """Every module imports in a fresh interpreter with CUDA hidden, and
+    neither JAX nor triton gets loaded and no kernel gets built."""
+    mods = sorted(
+        "taichi_3d_gaussian_splatting_tpu_torch."
+        + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build\n"
+        "assert not cuda_build._loaded\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'triton', 'taichi_3d_gaussian_splatting_tpu')]\n"
+        "assert not bad, bad\n"
+        "import torch; assert not torch.cuda.is_available()\n")
+    env = {"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin",
+           "PYTHONPATH": str(ROOT)}
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert len(mods) >= 13
+
+
+def _scene_tensors():
+    xyz, feats, invalid = make_scene(50, seed=2)
+    return [torch.from_numpy(a) for a in (xyz, feats, invalid, Q_ID, T_ID)]
+
+
+@pytest.mark.parametrize("which", ["xyz", "features"])
+def test_rasterize_refuses_requires_grad(which):
+    xyz, feats, invalid, q, t = _scene_tensors()
+    (xyz if which == "xyz" else feats).requires_grad_(True)
+    cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tr.rasterize(xyz, feats, invalid, q, t, cam, tr.RasterizerConfig())
+
+
+def test_rasterizer_config_refuses_deferred_options():
+    with pytest.raises(NotImplementedError):
+        tr.RasterizerConfig(pack_sort_colors=True)
+    with pytest.raises(ValueError):
+        tr.RasterizerConfig(slim=True, rgb_only=True)
+    xyz, feats, invalid, q, t = _scene_tensors()
+    cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
+    with pytest.raises(NotImplementedError, match="per-object"):
+        tr.compute_raw_attrs(xyz, feats, q[None].repeat(2, 1),
+                             t[None].repeat(2, 1), cam,
+                             point_object_id=torch.zeros(50, dtype=torch.int32))
+
+
+def _i32(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+def _call_histogram(ids):
+    return histogram.bucket_histogram(ids, 4)
+
+
+def _call_expand(offsets):
+    z = _i32(3)
+    return expand.expand_keys(offsets, z, z, z, z, torch.zeros(10, 3),
+                              total=0, tiles_u=2, tile_w=32, tile_h=32,
+                              dbits=20, sentinel=(5 << 20) - 1,
+                              exact_cull=True)
+
+
+def _call_blend(table):
+    return blend.blend_forward(table, _i32(4), _i32(4), tile=32, tiles_x=2,
+                               tiles_y=2)
+
+
+@pytest.mark.parametrize("call, good", [
+    (_call_histogram, _i32(8)),
+    (_call_expand, _i32(3)),
+    (_call_blend, torch.zeros(16, 8)),
+])
+def test_wrappers_check_their_inputs(call, good):
+    call(good)  # the plain version runs for a CPU tensor
+    wrong_dtype = good.to(torch.float64 if good.is_floating_point()
+                          else torch.int64)
+    with pytest.raises(TypeError):
+        call(wrong_dtype)
+    with pytest.raises(ValueError):
+        call(good[None])  # wrong rank
+    if good.dim() == 2:
+        with pytest.raises(ValueError):
+            call(good.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        call(good.to("meta"))  # neither CPU nor CUDA
+
+
+def test_wrappers_on_cpu_never_launch():
+    before = [f.launches for f in (histogram.bucket_histogram,
+                                   expand.expand_keys, blend.blend_forward)]
+    xyz, feats, invalid, q, t = _scene_tensors()
+    cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
+    out = tr.rasterize(xyz, feats, invalid, q, t, cam, tr.RasterizerConfig())
+    assert np.isfinite(out.rgb.numpy()).all()
+    assert before == [f.launches for f in (histogram.bucket_histogram,
+                                           expand.expand_keys,
+                                           blend.blend_forward)]

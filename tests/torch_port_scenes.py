@@ -1,0 +1,48 @@
+"""Seeded numpy inputs shared by the port's tests (tests/test_torch_*.py).
+
+numpy only, so the card-only tests can use it on a machine without JAX.
+The shapes are those of ``make_scene``/``make_camera`` in
+tests/test_rasterizer.py: 64x64 pixels and 100-200 points.
+"""
+import numpy as np
+
+Q_ID = np.asarray([0.0, 0.0, 0.0, 1.0], np.float32)
+T_ID = np.zeros((3,), np.float32)
+
+
+def make_scene(n=200, seed=7):
+    """(xyz (n, 3), features (n, 56), invalid (n,)) float32/bool arrays; the
+    first n // 20 slots are invalid."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack(
+        [rng.uniform(-1.5, 1.5, n), rng.uniform(-1.5, 1.5, n),
+         rng.uniform(2.0, 8.0, n)], axis=-1
+    ).astype(np.float32)
+    feats = np.zeros((n, 56), np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    feats[:, 4:7] = rng.uniform(-3.5, -1.5, (n, 3))
+    feats[:, 7] = rng.uniform(-1.0, 3.0, n)
+    feats[:, 8:] = rng.normal(size=(n, 48)) * 0.3
+    invalid = np.zeros((n,), bool)
+    invalid[: n // 20] = True
+    return xyz, feats, invalid
+
+
+def make_K(w=64, h=64):
+    return np.asarray([[60.0, 0.0, w / 2], [0.0, 60.0, h / 2],
+                       [0.0, 0.0, 1.0]], np.float32)
+
+
+def make_odd_scene(n=160, seed=3):
+    """A scene with the rows that exercise the guards: zero (invalid) rows,
+    points behind the camera, one at the camera centre, and one on the
+    camera plane."""
+    xyz, feats, invalid = make_scene(n, seed)
+    xyz[: n // 10, 2] *= -1.0           # behind the camera
+    xyz[n // 10] = 0.0                  # at the camera centre
+    xyz[n // 10 + 1, 2] = 0.0           # on the camera plane
+    xyz[-4:] = 0.0                      # zero-padded pool slots
+    feats[-4:] = 0.0
+    invalid[-4:] = True
+    return xyz, feats, invalid
