@@ -21,7 +21,22 @@ csrc`` with nvcc (sm_90a, one nvcc per source, all at once), then:
 3. times the render with CUDA events after a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
    its plain version's, torch.bincount's (K2's yardstick) and the kernel's
-   bound on an H100 SXM.
+   bound on an H100 SXM;
+1b. (run after 1) holds the backward kernels against their plain versions
+   at both sizes, with a seeded image cotangent and the forward's own rgb:
+   blend_backward's rows within 5e-4 + 1e-3 |plain| (the JAX package's
+   gradient gate), its count exact at 64x64 and differing on under 0.01%
+   of the full-width keys, its |grad_uv| image within 1e-4, and two runs
+   bit-identical; segment_reduce within 1e-5 (1 + sum of |terms|) (the
+   plain index_add_ adds with atomics on the card);
+4. trains at full width through ``training/trainer.py``'s make_train_step
+   (bench.py's train step: TrainConfig defaults, SH degree 3): 3 warm-up
+   and 20 timed steps from a state made by ``convert.train_state_from_jax``
+   of numpy arrays, towards a uint8 target rendered from the same scene
+   with seeded noise on its DC colours. Checks every loss and gradient
+   finite, the loss falling, and every kernel launched in the timed steps
+   (blend_backward and segment_reduce once a step); times the step, its
+   stages and the device's busy share.
 
 The scene is a seeded copy of bench.py's surround scene (random weights).
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -231,7 +246,8 @@ def profile_device(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     return wall_ms, rows
@@ -241,7 +257,18 @@ def device_ms(fn, reps: int) -> float:
     """Device ms of one fn() call: the kernels, copies and sets it runs,
     without the host's time between them."""
     _, rows = profile_device(fn, reps)
-    return sum(us for _, us in rows) / 1e3 / reps
+    return sum(us for _, us, _ in rows) / 1e3 / reps
+
+
+def kernel_ms(fn, symbol: str, reps: int) -> float:
+    """Device ms of one launch of the CUDA kernel ``symbol`` that fn()
+    launches: its events' device time over their count, in a profiler
+    window of reps calls."""
+    _, rows = profile_device(fn, reps)
+    mine = [(us, n) for name, us, n in rows if name.startswith(symbol + "(")]
+    if not mine:
+        raise AssertionError(f"the profiler saw no {symbol} launch")
+    return sum(us for us, _ in mine) / sum(n for _, n in mine) / 1e3
 
 
 def both_ms(fn, reps: int) -> dict:
@@ -315,9 +342,9 @@ def device_busy(fn, reps: int) -> dict:
     """The device's busy share of a window of reps calls of fn, and the
     device events that take the most of its time."""
     wall_ms, rows = profile_device(fn, reps)
-    device_ms_ = sum(us for _, us in rows) / 1e3
+    device_ms_ = sum(us for _, us, _ in rows) / 1e3
     by_name = {}  # names cut to 90 characters; kernels that share one add up
-    for name, us in rows:
+    for name, us, _ in rows:
         by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 1e3 / reps
     top = sorted(by_name.items(), key=lambda r: -r[1])[:10]
     return {"window_ms": wall_ms, "device_busy_ms": device_ms_,
@@ -375,6 +402,284 @@ def check_kernels(frame: Frame, label: str, full_width: bool) -> dict:
     return errs
 
 
+# --- phase 1b: the backward kernels against their plain versions ---------
+
+def check_backward_kernels(frame: Frame, label: str, full_width: bool):
+    """blend_backward and segment_reduce against their plain versions on
+    the frame's keys, a seeded rgb cotangent and the forward's rgb. Returns
+    (errors, K4 plain device ms of its one call, the inputs kept for
+    timing)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, tiling
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
+
+    k = frame.keys
+    cfin = blend.blend_forward(frame.table, k.tile_start, k.tile_end,
+                               rgb_only=True, **frame.blend_kw)
+    cfin = cfin[..., 0:3].contiguous()
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(size=tuple(cfin.shape)).astype(
+        np.float32)).to(cfin.device)
+    args = (frame.table, k.tile_start, k.tile_end, g, cfin)
+    got, img = blend.blend_backward(*args, **frame.blend_kw)
+    again, img2 = blend.blend_backward(*args, **frame.blend_kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(img, img2)):
+        raise AssertionError(f"{label}: blend_backward does not repeat bit "
+                             "for bit")
+    # the plain version runs once, timed by CUDA events (it launches tens
+    # of kernels a key position: too many events to profile)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want, img_p = blend.blend_backward_plain(*args, **frame.blend_kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    live = slice(0, frame.live_keys)
+    count_diff = got[11, live] != want[11, live]
+    n_count = int(count_diff.sum())
+    rows = [0, 1, 2, 3, 4, 5, 6, 7, 8, 10]
+    same = ~count_diff
+    excess = ((got[rows] - want[rows]).abs()
+              - (5e-4 + 1e-3 * want[rows].abs()))[:, live][:, same]
+    e_rows = max_abs(got[rows][:, live][:, same], want[rows][:, live][:, same])
+    e_img = max_abs(img, img_p)
+    zero_rows = float(got[[9, 12, 13, 14, 15]].abs().max())
+    print(f"  {label} blend_backward: max|d row| {e_rows:.3g} (gate "
+          f"5e-4 + 1e-3|plain|, worst excess {float(excess.max()):.3g}), "
+          f"count differs at {n_count} of {frame.live_keys} keys, "
+          f"max|d img| {e_img:.3g}; plain {plain_ms:.3f} ms", flush=True)
+    if excess.numel() and float(excess.max()) > 0:
+        raise AssertionError(f"{label}: blend_backward outside tolerance")
+    if n_count > (1e-4 * frame.live_keys if full_width else 0):
+        raise AssertionError(f"{label}: blend_backward counts differ at "
+                             f"{n_count} keys")
+    if e_img > 1e-4 or zero_rows != 0.0:
+        raise AssertionError(f"{label}: blend_backward image or zero rows")
+    if float(want[11].sum()) <= 0:
+        raise AssertionError(f"{label}: no pixel includes any key")
+
+    d_orig = tiling.regroup_rows_by_slot(got[0:12], k.orig_slot)
+    seg = sr.segment_reduce(d_orig, k.offsets, k.counts)
+    seg_p = sr.segment_reduce_plain(d_orig, k.offsets, k.counts)
+    torch.cuda.synchronize()
+    e_seg = max_abs(seg, seg_p)
+    # index_add_ adds with atomics on the card, in no fixed order, and the
+    # segments' terms cancel: the sum-order bound is 1e-5 of the sum of
+    # the terms' magnitudes
+    scale = 1 + sr.segment_reduce_plain(d_orig.abs(), k.offsets, k.counts)
+    worst = float(((seg - seg_p).abs() / scale).max()) if seg.numel() else 0.0
+    print(f"  {label} segment_reduce: max|d| {e_seg:.3g}, worst "
+          f"|d| / (1 + sum|terms|) {worst:.3g} (gate 1e-5)", flush=True)
+    if worst > 1e-5:
+        raise AssertionError(f"{label}: segment_reduce outside tolerance")
+    return ({"blend_backward": e_rows, "segment_reduce": e_seg}, plain_ms,
+            {"bwd_args": args, "d_orig": d_orig})
+
+
+# --- phase 4: training --------------------------------------------------------
+
+def train_setup(xyz, feats, camera, cfg_kw):
+    """bench.py's train step at full width: the step, a fresh state of the
+    scene (numpy arrays through convert.train_state_from_jax) and its
+    uint8 target, rendered from the scene with seeded noise (sigma 0.3) on
+    the DC colour features (columns 8, 24, 40)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.convert import (
+        train_state_from_jax,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        TrainConfig,
+    )
+
+    n = xyz.shape[0]
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(**cfg_kw))
+    zeros = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+    scene = {"xyz": xyz, "features": feats,
+             "invalid": np.zeros((n,), bool),
+             "object_id": np.zeros((n,), np.int32)}
+
+    def adam(p):
+        return {"mu": np.zeros_like(p), "nu": np.zeros_like(p), "count": 0}
+    ctrl = {"num_pixels": zeros(n), "num_in_camera": zeros(n),
+            "grad_viewspace": zeros(n), "grad_viewspace_avg": zeros(n),
+            "grad_position": zeros(n, 3), "grad_position_norm": zeros(n)}
+    state = train_state_from_jax(scene, adam(feats), adam(xyz), ctrl,
+                                 device="cuda")
+    rng = np.random.default_rng(11)
+    feats_gt = feats.copy()
+    feats_gt[:, [8, 24, 40]] += rng.normal(0.0, 0.3, (n, 3)).astype(
+        np.float32)
+    dev = state.scene.xyz.device
+    q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    t = torch.zeros(3, device=dev)
+    target = R.rasterize(state.scene.xyz, torch.from_numpy(feats_gt).to(dev),
+                         state.scene.invalid, q, t, camera,
+                         R.RasterizerConfig(rgb_only=True, **cfg_kw)).rgb
+    gt = torch.round(torch.clamp(target, 0.0, 1.0) * 255).to(torch.uint8)
+    step = trainer.make_train_step(config, camera.height, camera.width,
+                                   device="cuda")
+    return config, step, state, (gt, q, t, camera.K, 3)
+
+
+def train_stage_ms(config, state, inputs) -> dict:
+    """Wall and device ms of each stage of one train step, each timed
+    alone on its own inputs (their sum approximates the step)."""
+    import dataclasses
+
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import (
+        blend, segment_reduce as sr, tiling,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.training import (
+        controller, trainer,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.training.loss import (
+        compute_loss,
+    )
+
+    gt_u8, q, t, K, band = inputs
+    s = state.scene
+    cfg = dataclasses.replace(config.rasterisation_config, slim=True)
+    cam = R.Camera(K, WIDTH, HEIGHT)
+    tile = R._cfg_tile(cfg)
+    grid = (WIDTH // tile[0], HEIGHT // tile[1])
+    reps = 20
+    out = {}
+    x = s.xyz.detach().requires_grad_(True)
+    f = s.features.detach().requires_grad_(True)
+
+    def attrs():
+        with torch.enable_grad():
+            return R.compute_raw_attrs(x, f, q, t, cam, band)
+    out["attributes (forward, building the graph)"] = both_ms(attrs, reps)
+    raw, radius = attrs()
+    raw_v = R.RawAttrs(*(a.detach() for a in raw))
+    keys_fn = lambda: R.build_keys(raw_v, radius.detach(), s.invalid,  # noqa: E731
+                                   cam, cfg)
+    out["tiling (cull, keys, K1, sort, gather, K2)"] = both_ms(keys_fn, reps)
+    keys, table, visible = keys_fn()
+    k3 = lambda: blend.blend_forward(  # noqa: E731
+        table, keys.tile_start, keys.tile_end, tile=tile, tiles_x=grid[0],
+        tiles_y=grid[1], rgb_only=True)
+    out["blend_forward (K3)"] = both_ms(k3, reps)
+    out_tiles = k3()
+    rgb = R._assemble(out_tiles, cam, cfg).rgb
+    gt = gt_u8.to(torch.float32) * (1.0 / 255.0)
+
+    def loss():
+        p = torch.clamp(rgb, 0.0, 1.0).requires_grad_(True)
+        ff = s.features.detach().requires_grad_(True)
+        with torch.enable_grad():
+            val = compute_loss(p, gt, config.loss_function_config,
+                               features=ff, invalid_mask=s.invalid)[0]
+            return torch.autograd.grad(val, (p, ff))
+    out["loss (L1 + SSIM + scale reg, value and gradient)"] = both_ms(
+        loss, reps)
+    d_pred, _ = loss()
+    d_tiles = R._image_to_tiles(d_pred, grid[0], grid[1], tile)
+    cfin = out_tiles[..., 0:3].contiguous()
+    k4 = lambda: blend.blend_backward(  # noqa: E731
+        table, keys.tile_start, keys.tile_end, d_tiles, cfin, tile=tile,
+        tiles_x=grid[0], tiles_y=grid[1], imggrad=False)
+    out["blend_backward (K4)"] = both_ms(k4, reps)
+    d_table, _ = k4()
+    rows = d_table[0:12]
+    regroup = lambda: tiling.regroup_rows_by_slot(rows, keys.orig_slot)  # noqa: E731
+    out["regroup by original slot"] = both_ms(regroup, reps)
+    d_orig = regroup()
+    k5 = lambda: sr.segment_reduce(d_orig, keys.offsets, keys.counts)  # noqa: E731
+    out["segment_reduce (K5)"] = both_ms(k5, reps)
+    d_raw, (mag, npix, _) = R._blend_bwd_impl(
+        raw_v, keys, table, out_tiles, d_tiles, tile, grid, cfg)
+
+    def vjp():
+        return torch.autograd.grad(
+            (raw.uv, raw.conic, raw.opacity, raw.color), (x, f),
+            (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color),
+            retain_graph=True)
+    out["attribute VJP (autograd)"] = both_ms(vjp, reps)
+    d_xyz, d_feat = vjp()
+    ftx, ptx = trainer.make_optimizers(config)
+    gf = torch.from_numpy(trainer.grad_factor_vector(cfg)).to(s.xyz.device)
+
+    def update():
+        df = d_feat * gf[None, :]
+        valid = ~s.invalid[:, None]
+        dx = torch.where(valid, d_xyz, torch.zeros_like(d_xyz))
+        df = torch.where(valid, df, torch.zeros_like(df))
+        ftx.update(df, state.feat_opt, s.features)
+        ptx.update(dx, state.pos_opt, s.xyz)
+        controller.accumulate(state.ctrl, visible, npix, mag, dx)
+    out["grad factors, two Adams, accumulate"] = both_ms(update, reps)
+    return out
+
+
+def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
+    """Phase 4: 3 warm-up and 20 timed train steps with the launch counts
+    set to 0 before the timed steps and read after them."""
+    config, step, state, inputs = train_setup(xyz, feats, camera, cfg_kw)
+    losses, finite = [], []
+
+    def one_step():
+        nonlocal state
+        state, metrics, aux = step(state, *inputs)
+        losses.append(metrics["loss"])
+        finite.append(torch.isfinite(aux["grad_features"]).all()
+                      & torch.isfinite(aux["grad_xyz"]).all()
+                      & torch.isfinite(metrics["loss"]))
+        return metrics
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        metrics = one_step()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_list = [float(v) for v in losses]
+    print(f"  {steps} timed steps: {step_ms:.3f} ms/step; losses "
+          f"{loss_list[0]:.6f} (first) -> {loss_list[-1]:.6f} (last); "
+          f"launches {launches}", flush=True)
+    if not all(bool(v) for v in finite):
+        raise AssertionError("a non-finite loss or gradient")
+    if not loss_list[-1] < loss_list[0]:
+        raise AssertionError("the loss did not fall")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the train step never launched {name}")
+    for name in ("blend_backward", "segment_reduce"):
+        if launches[name] != steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps")
+    stages = train_stage_ms(config, state, inputs)
+    for name, v in stages.items():
+        print(f"  train stage {name}: wall {v['wall_ms']:.4f} ms, device "
+              f"{v['device_ms']:.4f} ms", flush=True)
+    busy = device_busy(one_step, reps=5)
+    print(f"  train profiler: {busy}", flush=True)
+    return {"train_ms_per_step": step_ms,
+            "train_mpix_s": HEIGHT * WIDTH / 1e6 / (step_ms / 1e3),
+            "train_steps_timed": steps, "train_losses": loss_list,
+            "train_num_keys": int(metrics["num_keys"]),
+            "train_launches": launches,
+            "train_launches_per_step": {n: v / steps
+                                        for n, v in launches.items()},
+            "train_peak_mem_gib": peak_gib, "train_stage_ms": stages,
+            "train_profile": busy}
+
+
 # --- main -------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -389,7 +694,7 @@ def main(argv=None) -> int:
     from taichi_3d_gaussian_splatting_tpu_torch.apps import render
     from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
     from taichi_3d_gaussian_splatting_tpu_torch.ops import (
-        blend, cuda_build, expand, histogram,
+        blend, cuda_build, expand, histogram, segment_reduce as sr,
     )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 
@@ -400,9 +705,11 @@ def main(argv=None) -> int:
     build_s = cuda_build.build_all()
     print(f"built {sorted(build_s)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc in parallel: {build_s})", flush=True)
-    kernels = {"expand_keys": expand.expand_keys,
-               "bucket_histogram": histogram.bucket_histogram,
-               "blend_forward": blend.blend_forward}
+    render_kernels = {"expand_keys": expand.expand_keys,
+                      "bucket_histogram": histogram.bucket_histogram,
+                      "blend_forward": blend.blend_forward}
+    kernels = dict(render_kernels, blend_backward=blend.blend_backward,
+                   segment_reduce=sr.segment_reduce)
 
     # phase 1a: the small frame
     xyz, feats, invalid = small_scene()
@@ -413,8 +720,15 @@ def main(argv=None) -> int:
                              np.float32))
     small = Frame(put(xyz), put(feats), put(invalid), q_id, t_id,
                   R.Camera(K_small, 64, 64), R.RasterizerConfig(tile_size=TILE))
-    print("phase 1: kernels against their plain versions", flush=True)
+    t_run = time.perf_counter()
+
+    def phase(title):
+        print(f"{title} [{time.perf_counter() - t_run:.1f} s]", flush=True)
+
+    phase("phase 1: kernels against their plain versions")
     check_kernels(small, "64x64", full_width=False)
+    phase("phase 1b: backward kernels against their plain versions")
+    check_backward_kernels(small, "64x64", full_width=False)
 
     # the full-width scene, through a .ply file as a user would load it
     xyz, feats = truck_scene_surround(N_POINTS)
@@ -437,16 +751,19 @@ def main(argv=None) -> int:
     print(f"full-width frame: {N_POINTS} points, {full.expand_kw['total']} "
           f"keys, {full.live_keys} live after the exact cull", flush=True)
     errs = check_kernels(full, f"{WIDTH}x{HEIGHT}", full_width=True)
+    bwd_errs, k4_plain_ms, bwd = check_backward_kernels(
+        full, f"{WIDTH}x{HEIGHT}", full_width=True)
+    errs.update(bwd_errs)
 
     # phase 2: the main path, with the launch counts read around it
-    print("phase 2: render through GaussianPointRenderer", flush=True)
+    phase("phase 2: render through GaussianPointRenderer")
     for f in kernels.values():
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = dict(renderer.frames())
     first_pass_s = time.perf_counter() - t0
-    launches = {name: f.launches for name, f in kernels.items()}
+    launches = {name: f.launches for name, f in render_kernels.items()}
     print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass); "
           f"launches {launches}", flush=True)
     for name, n in launches.items():
@@ -475,7 +792,7 @@ def main(argv=None) -> int:
         raise AssertionError("non-finite pixels")
 
     # phase 3: timing, after a warm-up
-    print("phase 3: timing", flush=True)
+    phase("phase 3: timing")
     qs, ts = render.se3_to_qt(renderer.poses)
     n_poses = qs.shape[0]
     state = {"i": 0}
@@ -517,16 +834,44 @@ def main(argv=None) -> int:
                                               k.tile_end, rgb_only=True,
                                               **full.blend_kw)),
     }
-    # "ms", "plain_ms" and "library_ms" are device time per call; a call's
-    # wall time (host included) is kept beside them in the record
-    ms = {n: device_ms(kern, reps=50) for n, (kern, _) in timed.items()}
+    bwd_args, d_orig = bwd["bwd_args"], bwd["d_orig"]
+    timed["blend_backward"] = (
+        lambda: blend.blend_backward(*bwd_args, **full.blend_kw), None)
+    timed["segment_reduce"] = (
+        lambda: sr.segment_reduce(d_orig, k.offsets, k.counts),
+        lambda: sr.segment_reduce_plain(d_orig, k.offsets, k.counts))
+    # "ms" is the kernel's own device time per launch; "plain_ms" and
+    # "library_ms" are device time per call (blend_backward's plain_ms:
+    # the wall time of its one call); a call's wall time (host included)
+    # is kept beside them in the record
+    symbol = {"expand_keys": "expand_kernel",
+              "bucket_histogram": "histogram_kernel",
+              "blend_forward": "blend_forward_kernel",
+              "blend_backward": "blend_backward_kernel",
+              "segment_reduce": "segment_reduce_kernel"}
+    ms = {n: kernel_ms(kern, symbol[n], reps=50)
+          for n, (kern, _) in timed.items()}
     call_ms = {n: cuda_ms(kern, reps=50, warmup=5)
                for n, (kern, _) in timed.items()}
     plain_ms = {n: device_ms(p, reps=2 if n == "blend_forward" else 10)
-                for n, (_, p) in timed.items()}
+                for n, (_, p) in timed.items() if p is not None}
+    plain_ms["blend_backward"] = k4_plain_ms  # its one call in phase 1b
     bincount_ms = device_ms(
         lambda: torch.bincount(full.tile_ids, minlength=full.num_tiles),
         reps=50)
+    lengths = k.counts.long()
+    segment_reduce_lib_ms = device_ms(
+        lambda: torch.segment_reduce(d_orig.T.contiguous(), "sum",
+                                     lengths=lengths, axis=0, unsafe=True),
+        reps=50)
+    library_ms = {"bucket_histogram": bincount_ms,
+                  "segment_reduce": segment_reduce_lib_ms}
+
+    # phase 4: the training step, with the launch counts read around its
+    # timed steps
+    phase("phase 4: train steps at full width")
+    train = run_training(xyz, feats, renderer.camera, {"tile_size": TILE},
+                         kernels)
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -534,6 +879,7 @@ def main(argv=None) -> int:
     pairs = blend_pairs(full)
     included = int(plain.count.sum())
     px = HEIGHT * WIDTH
+    n_rows = d_orig.shape[0]
     work = {
         # reads offsets, dkey, base, h (4 x 4 B) and 10 attr rows per point;
         # writes the fused key and 16 table rows per key. Per key: a binary
@@ -547,6 +893,17 @@ def main(argv=None) -> int:
         # (quadratic, exp, test) and 11 more per blended pair
         "blend_forward": (9 * 4 * full.live_keys + 8 * full.num_tiles
                           + 8 * 4 * px, 16 * pairs + 11 * included),
+        # reads 9 table rows of every live key, the ranges, the rgb
+        # cotangent and the forward's rgb (3 floats a pixel each); writes
+        # 11 rows of every live key and 2 floats a pixel. 16 flops per
+        # evaluated pair, 45 more per included pair
+        "blend_backward": (9 * 4 * full.live_keys + 8 * full.num_tiles
+                           + 6 * 4 * px + 11 * 4 * full.live_keys
+                           + 2 * 4 * px, 16 * pairs + 45 * included),
+        # reads every row lane once and the offsets and counts, writes one
+        # float a (row, point); one add per row lane
+        "segment_reduce": (4 * n_rows * total + 8 * n + 4 * n_rows * n,
+                           n_rows * total),
     }
     source = "taichi_3d_gaussian_splatting_tpu_torch/csrc/{}.cu"
     replaces = {
@@ -555,9 +912,14 @@ def main(argv=None) -> int:
             "taichi_3d_gaussian_splatting_tpu/ops/histogram.py:78",
         "blend_forward":
             "taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py:389",
+        "blend_backward":
+            "taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py:748",
+        "segment_reduce":
+            "taichi_3d_gaussian_splatting_tpu/ops/segment_reduce.py:235",
     }
     src = {"expand_keys": "expand", "bucket_histogram": "histogram",
-           "blend_forward": "blend"}
+           "blend_forward": "blend", "blend_backward": "blend_backward",
+           "segment_reduce": "segment_reduce"}
     rows = []
     for name in kernels:
         nbytes, ops = work[name]
@@ -565,11 +927,13 @@ def main(argv=None) -> int:
         t_ops = ops / F32_FLOPS * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source.format(src[name]),
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": train["train_launches"][name],
+            "launches_per_step": train["train_launches_per_step"][name],
+            "launches_per_frame": launches.get(name, 0) / len(pose_list),
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": bincount_ms if name == "bucket_histogram" else None,
+            "library_ms": library_ms.get(name),
         })
 
     record = {
@@ -581,13 +945,20 @@ def main(argv=None) -> int:
         "blended_pairs": included,
         "launches_per_frame": {n: launches[n] / len(pose_list)
                                for n in launches},
-        "bincount_ms": bincount_ms, "kernel_call_wall_ms": call_ms,
+        "bincount_ms": bincount_ms,
+        "segment_reduce_library_ms": segment_reduce_lib_ms,
+        "kernel_call_wall_ms": call_ms,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
+        **train,
         "kernels": rows,
     }
     print(f"render: {frame_ms:.3f} ms/frame, {mpix_s:.1f} Mpix/s; "
           f"{len(frames)} frames to host in {frames_s:.3f} s", flush=True)
+    phase("done")
+    print(f"train: {train['train_ms_per_step']:.3f} ms/step, "
+          f"{train['train_mpix_s']:.1f} Mpix/s, peak "
+          f"{train['train_peak_mem_gib']:.2f} GiB", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -1,4 +1,5 @@
-"""The JAX package's state, as numpy arrays, turned into the port's.
+"""The JAX package's state, as numpy arrays, turned into the port's:
+scenes, cameras and training states.
 
 Arrays of the JAX package convert with ``np.asarray`` on the caller's side;
 nothing here imports JAX.
@@ -10,6 +11,13 @@ import torch
 
 from taichi_3d_gaussian_splatting_tpu_torch.models.scene import GaussianScene
 from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import Camera
+from taichi_3d_gaussian_splatting_tpu_torch.training.controller import (
+    ControllerState,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
+    AdamState,
+    TrainState,
+)
 
 
 def scene_from_jax_arrays(xyz, features, invalid, object_id=None,
@@ -33,3 +41,32 @@ def camera_from_jax(K, width: int, height: int, device="cuda") -> Camera:
     """(3, 3) intrinsics and the image size -> a Camera on ``device``."""
     return Camera(K=torch.from_numpy(np.array(K, dtype=np.float32)).to(device),
                   width=int(width), height=int(height))
+
+
+def _field(obj, name: str):
+    """``obj[name]`` for a mapping, ``obj.name`` otherwise."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def train_state_from_jax(scene, feat_adam, pos_adam, ctrl,
+                         device="cuda") -> TrainState:
+    """The JAX package's training state -> the port's TrainState on
+    ``device``. ``scene``: xyz, features, invalid, object_id; ``feat_adam``
+    and ``pos_adam``: optax's Adam state (mu, nu, count) of the features
+    and of the positions; ``ctrl``: the ControllerState fields. Each is a
+    mapping or an object with those attributes, of array-likes."""
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def adam(s):
+        return AdamState(mu=put(_field(s, "mu")), nu=put(_field(s, "nu")),
+                         count=int(np.asarray(_field(s, "count"))))
+
+    return TrainState(
+        scene=scene_from_jax_arrays(
+            _field(scene, "xyz"), _field(scene, "features"),
+            _field(scene, "invalid"), _field(scene, "object_id"),
+            device=device),
+        feat_opt=adam(feat_adam), pos_opt=adam(pos_adam),
+        ctrl=ControllerState(*(put(_field(ctrl, f))
+                               for f in ControllerState._fields)))

@@ -3,7 +3,7 @@
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/blend_reference.py``:
 - alpha = pdf_conic(pixel) * rescale * sigmoid(opacity);
 - contributions with alpha < 1/255 are skipped entirely (no T update);
-- alpha is clamped at 0.99;
+- alpha is clamped at 0.99, straight-through for gradients;
 - blending stops for good once T would drop below 1e-4: the triggering
   point and every later one are excluded;
 - pixel centers at +0.5; no background (color starts at 0);
@@ -19,11 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from taichi_3d_gaussian_splatting_tpu_torch.ops.blend import (
-    ALPHA_CLAMP,
-    ALPHA_SKIP_EPS,
-    T_SATURATION_EPS,
-)
+ALPHA_SKIP_EPS = 1.0 / 255.0
+ALPHA_CLAMP = 0.99
+T_SATURATION_EPS = 1e-4
+
+
+def straight_through_clamp(a: torch.Tensor) -> torch.Tensor:
+    """min(a, 0.99) in value, the identity in gradient."""
+    return a - (a - a.clamp_max(ALPHA_CLAMP)).detach()
 
 
 def blend_dense(
@@ -47,7 +50,7 @@ def blend_dense(
 
     skip = ~(alpha_u >= ALPHA_SKIP_EPS)  # not(>=) catches NaN
     a = torch.where(skip, torch.zeros_like(alpha_u),
-                    torch.clamp_max(alpha_u, ALPHA_CLAMP))
+                    straight_through_clamp(alpha_u))
     one_minus = 1.0 - a
     p_incl = torch.cumprod(one_minus, dim=1)
     T = p_incl / one_minus  # exclusive product; 1 - a >= 0.01

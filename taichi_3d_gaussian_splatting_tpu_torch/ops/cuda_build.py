@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("histogram", "expand", "blend")
+KERNEL_SOURCES = ("histogram", "expand", "blend", "blend_backward",
+                  "segment_reduce")
 
 _loaded: dict = {}
 

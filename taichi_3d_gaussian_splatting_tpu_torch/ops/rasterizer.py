@@ -1,15 +1,25 @@
-"""The tile rasterizer, forward: attributes -> tile keys -> blend -> image.
+"""The differentiable tile rasterizer: attributes -> tile keys -> blend ->
+image, and its backward.
 
-Port of the forward half of ``taichi_3d_gaussian_splatting_tpu/ops/
-rasterizer.py``:
+Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
 
-  compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid)
-  -> build_keys (frustum cull, tile bbox, expand_keys kernel, one stable
-     key sort, bucket_histogram kernel for the tile ranges)
+  compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid; autograd)
+  -> build_keys (no gradient: frustum cull, tile bbox, expand_keys kernel,
+     one stable key sort, bucket_histogram kernel for the tile ranges)
   -> blend_forward kernel -> _assemble (tiles -> image)
+  backward: blend_backward kernel -> per-key rows regrouped to pre-sort
+     key order -> segment_reduce kernel -> per-point raw-attribute
+     gradients -> torch autograd of compute_raw_attrs -> xyz, features.
 
-This slice has no backward: ``rasterize`` refuses inputs that require
-grad rather than return an image with no gradient.
+``rasterize`` differentiates through ``_BlendCore`` (a
+``torch.autograd.Function``) when xyz or features require grad, and runs
+under ``torch.no_grad()`` otherwise, so rendering builds no graph.
+``rasterize_fwd_ctx`` / ``rasterize_bwd`` are the trainer's explicit pair,
+which also returns the densification statistics (``GradStats``).
+
+Gradient semantics, as the JAX package's: only the rgb output
+backpropagates; the 0.99 alpha clamp is straight-through; the conic
+gradients are exact.
 """
 from __future__ import annotations
 
@@ -23,6 +33,9 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
 from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
     compute_point_attributes,
     frustum_cull_mask,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (
+    segment_reduce,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 
@@ -101,6 +114,29 @@ class RawAttrs(NamedTuple):
     depth: torch.Tensor    # (N,)
 
 
+class GradStats(NamedTuple):
+    """Densification statistics of the backward pass, dense over pool
+    slots."""
+
+    grad_uv: torch.Tensor                   # (N, 2) viewspace position grad
+    magnitude_grad_viewspace: torch.Tensor  # (N,) sum over pixels of |grad_uv|
+    num_affected_pixels: torch.Tensor       # (N,)
+    num_overlap_tiles: torch.Tensor         # (N,) int32
+    in_camera: torch.Tensor                 # (N,) bool visibility this frame
+    magnitude_grad_viewspace_on_image: torch.Tensor  # (H, W, 2); (1, 1, 2)
+                                                     # zeros when slim
+
+
+class RenderContext(NamedTuple):
+    """What ``rasterize_bwd`` needs of the forward (all without grad)."""
+
+    raw: RawAttrs
+    keys: tiling.TileKeys
+    table: torch.Tensor
+    out_tiles: torch.Tensor
+    visible: torch.Tensor
+
+
 def _cfg_tile(cfg: RasterizerConfig) -> tuple:
     """(tile_w, tile_h) of a config (tile_h=None means square)."""
     th = cfg.tile_size if cfg.tile_h is None else cfg.tile_h
@@ -121,6 +157,20 @@ def _tiles_to_image(tiles: torch.Tensor, tiles_x: int, tiles_y: int, tile):
     c = tiles.shape[-1]
     img = tiles.reshape(tiles_y, tiles_x, th, tw, c)
     return img.permute(0, 2, 1, 3, 4).reshape(tiles_y * th, tiles_x * tw, c)
+
+
+def _image_to_tiles(img: torch.Tensor, tiles_x: int, tiles_y: int, tile):
+    """(H, W, C) -> (num_tiles, tile_w*tile_h, C)."""
+    tw, th = tiling.tile_wh(tile)
+    c = img.shape[-1]
+    t = img.reshape(tiles_y, th, tiles_x, tw, c)
+    return t.permute(0, 2, 1, 3, 4).reshape(tiles_y * tiles_x, th * tw, c)
+
+
+def _check_size(camera: Camera, tile) -> None:
+    if camera.width % tile[0] or camera.height % tile[1]:
+        raise ValueError(f"image {camera.width}x{camera.height} is not a "
+                         f"multiple of the {tile[0]}x{tile[1]} tile")
 
 
 def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
@@ -159,10 +209,11 @@ def attr_columns(raw: RawAttrs) -> torch.Tensor:
          raw.color[:, 2], raw.depth], dim=0)
 
 
+@torch.no_grad()
 def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
                cfg: RasterizerConfig):
     """Tiling stage. Returns (keys, sorted (16, total) blend table, visible
-    mask)."""
+    mask). Takes no gradient."""
     visible = frustum_cull_mask(
         raw.uv, raw.depth, invalid_mask, camera.width, camera.height,
         cfg.near_plane, cfg.far_plane, _cfg_tile(cfg),
@@ -192,34 +243,169 @@ def _assemble(out_tiles, camera: Camera, cfg: RasterizerConfig):
     )
 
 
+def _blend_bwd_impl(raw: RawAttrs, keys: tiling.TileKeys, table, out_tiles,
+                    d_rgb_tiles, tile, grid_hw, cfg: RasterizerConfig):
+    """Per-point raw-attribute cotangents of the rgb tiles' cotangent
+    ``d_rgb_tiles``, and the densification statistics (magnitude,
+    affected pixels, |grad_uv| tiles). Only ``raw.conic`` and
+    ``raw.opacity`` are read."""
+    tiles_x, tiles_y = grid_hw
+    d_table, imggrad_tiles = blend.blend_backward(
+        table, keys.tile_start, keys.tile_end, d_rgb_tiles.contiguous(),
+        out_tiles[..., 0:3].contiguous(), tile=tile, tiles_x=tiles_x,
+        tiles_y=tiles_y, extra_info=cfg.extra_info, imggrad=not cfg.slim)
+    # rows 0..11 (row 9 is zero) from sorted to pre-sort key order, where
+    # each point's keys are contiguous, then summed per point
+    d_orig = tiling.regroup_rows_by_slot(d_table[0:12], keys.orig_slot)
+    per_point = segment_reduce(d_orig, keys.offsets, keys.counts)
+    # split d_log(rescale * opacity) into the two exact cotangents
+    d_logro = per_point[5]
+    n = per_point.shape[1]
+    d_raw = RawAttrs(
+        uv=torch.stack([per_point[0], per_point[1]], dim=-1),
+        cov2d=per_point.new_zeros((n, 3)),
+        conic=torch.stack(
+            [per_point[2], per_point[3], per_point[4],
+             d_logro / torch.clamp_min(raw.conic[:, 3], 1e-12)], dim=-1),
+        opacity=d_logro / torch.clamp_min(raw.opacity, 1e-12),
+        color=torch.stack([per_point[6], per_point[7], per_point[8]], dim=-1),
+        depth=per_point.new_zeros((n,)),
+    )
+    return d_raw, (per_point[10], per_point[11], imggrad_tiles)
+
+
+def _blend(table, keys: tiling.TileKeys, tile, grid_hw,
+           cfg: RasterizerConfig):
+    return blend.blend_forward(
+        table, keys.tile_start, keys.tile_end, tile=tile, tiles_x=grid_hw[0],
+        tiles_y=grid_hw[1], rgb_only=cfg.rgb_only or cfg.slim)
+
+
+class _BlendCore(torch.autograd.Function):
+    """out_tiles = blend_forward(table); the table is a function of the
+    raw fields (uv, conic, opacity, color) that arrives without a graph,
+    and the backward (K4 -> regroup -> K5) is its adjoint, returned as the
+    raw fields' cotangents."""
+
+    @staticmethod
+    def forward(ctx, uv, conic, opacity, color, table, keys, tile, grid_hw,
+                cfg):
+        out_tiles = _blend(table, keys, tile, grid_hw, cfg)
+        ctx.save_for_backward(conic, opacity, table, out_tiles)
+        ctx.keys, ctx.tile, ctx.grid_hw, ctx.cfg = keys, tile, grid_hw, cfg
+        return out_tiles
+
+    @staticmethod
+    def backward(ctx, d_out_tiles):
+        conic, opacity, table, out_tiles = ctx.saved_tensors
+        raw = RawAttrs(uv=None, cov2d=None, conic=conic, opacity=opacity,
+                       color=None, depth=None)
+        d_raw, _ = _blend_bwd_impl(raw, ctx.keys, table, out_tiles,
+                                   d_out_tiles[..., 0:3], ctx.tile,
+                                   ctx.grid_hw, ctx.cfg)
+        return (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color,
+                None, None, None, None, None)
+
+
 def rasterize(xyz: torch.Tensor, features: torch.Tensor,
               invalid_mask: torch.Tensor, q_pointcloud_camera: torch.Tensor,
               t_pointcloud_camera: torch.Tensor, camera: Camera,
               cfg: RasterizerConfig, sh_max_band=3,
               point_object_id: Optional[torch.Tensor] = None,
               return_num_keys: bool = False):
-    """Render the scene into a camera view (forward only). Requires
-    camera.width/height divisible by the tile. With ``return_num_keys`` also
-    returns the number of tile keys of this frame."""
-    if xyz.requires_grad or features.requires_grad:
-        raise NotImplementedError(
-            "rasterize has no backward yet (it comes with the blend_backward "
-            "and segment_reduce kernels); pass tensors without requires_grad")
+    """Render the scene into a camera view; differentiable with respect to
+    xyz and features. Requires camera.width/height divisible by the tile.
+    With ``return_num_keys`` also returns the number of tile keys of this
+    frame."""
     tile = _cfg_tile(cfg)
-    if camera.width % tile[0] or camera.height % tile[1]:
-        raise ValueError(f"image {camera.width}x{camera.height} is not a "
-                         f"multiple of the {tile[0]}x{tile[1]} tile")
+    _check_size(camera, tile)
+    if q_pointcloud_camera.requires_grad or t_pointcloud_camera.requires_grad:
+        raise NotImplementedError(
+            "camera pose gradients are not ported yet; they come with the "
+            "poses slice (ROADMAP.md A8)")
     pin_f32_matmul()
-    with torch.no_grad():
+    grid_hw = (camera.width // tile[0], camera.height // tile[1])
+    needs_grad = torch.is_grad_enabled() and (xyz.requires_grad
+                                              or features.requires_grad)
+    with torch.set_grad_enabled(needs_grad):
         raw, radius = compute_raw_attrs(
             xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera,
             sh_max_band, point_object_id)
         keys, table, _ = build_keys(raw, radius, invalid_mask, camera, cfg)
-        out_tiles = blend.blend_forward(
-            table, keys.tile_start, keys.tile_end, tile=tile,
-            tiles_x=camera.width // tile[0], tiles_y=camera.height // tile[1],
-            rgb_only=cfg.rgb_only or cfg.slim)
+        out_tiles = _BlendCore.apply(raw.uv, raw.conic, raw.opacity,
+                                     raw.color, table, keys, tile, grid_hw,
+                                     cfg)
         out = _assemble(out_tiles, camera, cfg)
     if return_num_keys:
         return out, keys.total
     return out
+
+
+def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
+                      t_pointcloud_camera, camera: Camera,
+                      cfg: RasterizerConfig, sh_max_band=3,
+                      point_object_id=None, with_pose_grads: bool = False):
+    """Forward pass returning (output, RenderContext, attrs_vjp) for
+    ``rasterize_bwd``. ``attrs_vjp(d_raw)`` maps raw-attribute cotangents
+    to (d_xyz, d_features) by autograd of ``compute_raw_attrs``; it can be
+    called once. The output carries no graph."""
+    if with_pose_grads:
+        raise NotImplementedError(
+            "with_pose_grads (camera pose refinement) is not ported yet; it "
+            "comes with the poses slice (ROADMAP.md A8)")
+    tile = _cfg_tile(cfg)
+    _check_size(camera, tile)
+    pin_f32_matmul()
+    x = xyz.detach().requires_grad_(True)
+    f = features.detach().requires_grad_(True)
+    with torch.enable_grad():
+        raw, radius = compute_raw_attrs(
+            x, f, q_pointcloud_camera.detach(), t_pointcloud_camera.detach(),
+            camera, sh_max_band, point_object_id)
+    with torch.no_grad():
+        # radius only feeds the tiling stage: it is cut from the graph
+        raw_values = RawAttrs(*(a.detach() for a in raw))
+        keys, table, visible = build_keys(raw_values, radius.detach(),
+                                          invalid_mask, camera, cfg)
+        out_tiles = _blend(table, keys, tile, (camera.width // tile[0],
+                                               camera.height // tile[1]), cfg)
+        out = _assemble(out_tiles, camera, cfg)
+    ctx = RenderContext(raw=raw_values, keys=keys, table=table,
+                        out_tiles=out_tiles, visible=visible)
+
+    def attrs_vjp(d_raw: RawAttrs):
+        return torch.autograd.grad(
+            (raw.uv, raw.conic, raw.opacity, raw.color), (x, f),
+            (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color))
+
+    return out, ctx, attrs_vjp
+
+
+def rasterize_bwd(ctx: RenderContext, attrs_vjp, d_rgb: torch.Tensor,
+                  camera: Camera, cfg: RasterizerConfig):
+    """Backward from the (H, W, 3) image cotangent to ((d_xyz, d_features),
+    GradStats). Grad factors and SH-band masking are the trainer's."""
+    tile = _cfg_tile(cfg)
+    tiles_x = camera.width // tile[0]
+    tiles_y = camera.height // tile[1]
+    with torch.no_grad():
+        d_rgb_tiles = _image_to_tiles(d_rgb, tiles_x, tiles_y, tile)
+        d_raw, (mag, npix, imggrad_tiles) = _blend_bwd_impl(
+            ctx.raw, ctx.keys, ctx.table, ctx.out_tiles, d_rgb_tiles, tile,
+            (tiles_x, tiles_y), cfg)
+    grads = attrs_vjp(d_raw)
+    if cfg.slim:
+        # the slim path skips the per-pixel |grad_uv| image
+        imggrad_img = torch.zeros((1, 1, 2), dtype=torch.float32,
+                                  device=d_rgb.device)
+    else:
+        imggrad_img = _tiles_to_image(imggrad_tiles, tiles_x, tiles_y, tile)
+    stats = GradStats(
+        grad_uv=d_raw.uv,
+        magnitude_grad_viewspace=mag,
+        num_affected_pixels=npix,
+        num_overlap_tiles=ctx.keys.counts,
+        in_camera=ctx.visible,
+        magnitude_grad_viewspace_on_image=imggrad_img,
+    )
+    return grads, stats

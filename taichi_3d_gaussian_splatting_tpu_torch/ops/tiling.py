@@ -15,7 +15,8 @@ Stages: ``expand_keys`` (a CUDA kernel) writes the keys and the table in
 pre-sort order; one stable ``torch.sort`` orders the keys and the table
 columns follow by the returned permutation; ``bucket_histogram`` (a CUDA
 kernel) counts each tile's keys, and their exclusive cumsum gives the
-ranges.
+ranges. The backward's ``regroup_rows_by_slot`` scatters per-key rows back
+to pre-sort order by the same permutation.
 """
 from __future__ import annotations
 
@@ -183,6 +184,15 @@ def build_tile_keys_and_table(
         total=r.total,
     )
     return keys, table_s
+
+
+def regroup_rows_by_slot(rows: torch.Tensor,
+                         orig_slot: torch.Tensor) -> torch.Tensor:
+    """(R, total) rows in sorted key order -> (R, total) in original
+    (pre-sort) key order: out[:, orig_slot[i]] = rows[:, i]. Every slot
+    appears once in ``orig_slot`` (the sort's permutation), so a scatter
+    by it writes every output lane."""
+    return torch.empty_like(rows).index_copy_(1, orig_slot, rows)
 
 
 def build_tile_keys(uv, depth, radius, visible, width: int, height: int,

@@ -1,7 +1,7 @@
 """Rules of the port that no parity test covers: it never imports JAX or
-the JAX package, it imports without CUDA, its forward-only rasterizer
-refuses inputs that need gradients, and its kernel wrappers reject
-malformed tensors."""
+the JAX package, it imports without CUDA (and without PyYAML), gradients
+flow through its rasterizer, the options it has not ported raise, and its
+kernel wrappers reject malformed tensors and never launch on the CPU."""
 import ast
 import re
 import subprocess
@@ -12,8 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from taichi_3d_gaussian_splatting_tpu_torch.convert import (
+    scene_from_jax_arrays,
+)
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as tr
+from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
+from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
 from tests.torch_port_scenes import Q_ID, T_ID, make_K, make_scene
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,7 +75,27 @@ def test_package_imports_without_cuda_or_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 13
+    assert len(mods) >= 18
+
+
+def test_config_imports_without_yaml():
+    """The card's machine has no PyYAML: nothing on the train step may
+    need it. Only load_config imports it."""
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None  # an import of yaml now fails\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.training import "
+        "config, trainer\n"
+        "config.from_dict({'feature_learning_rate': '1e-4'})\n"
+        "try:\n"
+        "    config.load_config('missing.yaml')\n"
+        "except ImportError:\n"
+        "    print('load_config needs yaml')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "load_config needs yaml"
 
 
 def _scene_tensors():
@@ -78,12 +104,14 @@ def _scene_tensors():
 
 
 @pytest.mark.parametrize("which", ["xyz", "features"])
-def test_rasterize_refuses_requires_grad(which):
+def test_rasterize_gradients_flow(which):
     xyz, feats, invalid, q, t = _scene_tensors()
-    (xyz if which == "xyz" else feats).requires_grad_(True)
+    leaf = (xyz if which == "xyz" else feats).requires_grad_(True)
     cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tr.rasterize(xyz, feats, invalid, q, t, cam, tr.RasterizerConfig())
+    out = tr.rasterize(xyz, feats, invalid, q, t, cam, tr.RasterizerConfig())
+    (grad,) = torch.autograd.grad(out.rgb.sum(), leaf)
+    assert grad.shape == leaf.shape
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
 
 
 def test_rasterizer_config_refuses_deferred_options():
@@ -97,6 +125,22 @@ def test_rasterizer_config_refuses_deferred_options():
         tr.compute_raw_attrs(xyz, feats, q[None].repeat(2, 1),
                              t[None].repeat(2, 1), cam,
                              point_object_id=torch.zeros(50, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="poses slice"):
+        tr.rasterize_fwd_ctx(xyz, feats, invalid, q, t, cam,
+                             tr.RasterizerConfig(), with_pose_grads=True)
+    with pytest.raises(NotImplementedError, match="poses slice"):
+        tr.rasterize(xyz, feats, invalid, q.clone().requires_grad_(True), t,
+                     cam, tr.RasterizerConfig())
+
+
+@pytest.mark.parametrize("config, scan_steps, match", [
+    (TrainConfig(pose_refinement=True), 0, "poses slice"),
+    (TrainConfig(), 2, "scan_steps"),
+])
+def test_train_step_refuses_unported_options(config, scan_steps, match):
+    with pytest.raises(NotImplementedError, match=match):
+        trainer.make_train_step(config, 64, 64, scan_steps=scan_steps,
+                                device="cpu")
 
 
 def _i32(*shape):
@@ -120,10 +164,22 @@ def _call_blend(table):
                                tiles_y=2)
 
 
+def _call_blend_backward(d_rgb):
+    return blend.blend_backward(torch.zeros(16, 8), _i32(4), _i32(4), d_rgb,
+                                torch.zeros(4, 1024, 3), tile=32, tiles_x=2,
+                                tiles_y=2)
+
+
+def _call_segment_reduce(rows):
+    return sr.segment_reduce(rows, _i32(3), _i32(3))
+
+
 @pytest.mark.parametrize("call, good", [
     (_call_histogram, _i32(8)),
     (_call_expand, _i32(3)),
     (_call_blend, torch.zeros(16, 8)),
+    (_call_blend_backward, torch.zeros(4, 1024, 3)),
+    (_call_segment_reduce, torch.zeros(12, 8)),
 ])
 def test_wrappers_check_their_inputs(call, good):
     call(good)  # the plain version runs for a CPU tensor
@@ -140,13 +196,29 @@ def test_wrappers_check_their_inputs(call, good):
         call(good.to("meta"))  # neither CPU nor CUDA
 
 
+def test_wrappers_check_shapes():
+    with pytest.raises(ValueError, match="d_rgb_tiles"):
+        _call_blend_backward(torch.zeros(4, 512, 3))
+    with pytest.raises(ValueError, match="counts"):
+        sr.segment_reduce(torch.zeros(12, 8), _i32(3), _i32(4))
+
+
+COUNTERS = (histogram.bucket_histogram, expand.expand_keys,
+            blend.blend_forward, blend.blend_backward, sr.segment_reduce)
+
+
 def test_wrappers_on_cpu_never_launch():
-    before = [f.launches for f in (histogram.bucket_histogram,
-                                   expand.expand_keys, blend.blend_forward)]
+    before = [f.launches for f in COUNTERS]
     xyz, feats, invalid, q, t = _scene_tensors()
     cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
     out = tr.rasterize(xyz, feats, invalid, q, t, cam, tr.RasterizerConfig())
     assert np.isfinite(out.rgb.numpy()).all()
-    assert before == [f.launches for f in (histogram.bucket_histogram,
-                                           expand.expand_keys,
-                                           blend.blend_forward)]
+    config = TrainConfig()
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device="cpu"), config)
+    step = trainer.make_train_step(config, 64, 64, device="cpu")
+    gt = torch.zeros((64, 64, 3), dtype=torch.uint8)
+    _, metrics, aux = step(state, gt, q, t, cam.K, 3)
+    assert np.isfinite(float(metrics["loss"]))
+    assert bool(torch.isfinite(aux["grad_features"]).all())
+    assert before == [f.launches for f in COUNTERS]

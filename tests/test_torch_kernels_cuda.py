@@ -1,5 +1,6 @@
-"""Card-only: each CUDA kernel of the render path against its plain PyTorch
-version on the same inputs, at the small size of the CPU tests.
+"""Card-only: each CUDA kernel of the port against its plain PyTorch version
+on the same inputs, at the small size of the CPU tests, and one render and
+one train step launching every kernel of its path.
 
 Needs an NVIDIA card and nvcc; skipped elsewhere. This file imports no JAX,
 so it runs on a machine without it:
@@ -10,15 +11,25 @@ Tolerances: expand_keys and bucket_histogram are integer/copy kernels and
 must match bit for bit; the blend kernel keeps a sequential transmittance
 where the plain version takes a parallel cumprod, so rgb/alpha agree to
 1e-4, depth to 5e-4 (the JAX package's own image gates) and, at this
-size, the count exactly.
+size, the count exactly. blend_backward sums each key's pixel terms in
+another order than the plain version's torch.sum: rows 0..8 and 10 agree
+to 5e-4 + 1e-3 |plain| (the JAX package's gradient gate), the count and
+the |grad_uv| image (1e-4) as the forward's; segment_reduce adds in lane
+order like index_add_, to 1e-5 (1 + |plain|).
 """
 import numpy as np
 import pytest
 import torch
 
+from taichi_3d_gaussian_splatting_tpu_torch.convert import (
+    scene_from_jax_arrays,
+)
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
+from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
 from tests.torch_port_scenes import Q_ID, T_ID, make_K, make_scene
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +135,73 @@ def test_rasterize_launches_every_kernel(dev):
     assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
     assert out.rgb.shape == (64, 64, 3) and out.rgb.is_cuda
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16)])
+@pytest.mark.parametrize("dense", [False, True])
+def test_blend_backward_matches_plain(dev, tile, dense):
+    cfg, cam, raw, radius, invalid, _ = _frame(
+        dev, tile, n=2000 if dense else 200, scale_shift=1.0 if dense else 0.0)
+    keys, table, _ = R.build_keys(raw, radius, invalid, cam, cfg)
+    kw = dict(tile=tile, tiles_x=cam.width // tile[0],
+              tiles_y=cam.height // tile[1])
+    cfin = blend.blend_forward(table, keys.tile_start, keys.tile_end,
+                               rgb_only=True, **kw)[..., 0:3].contiguous()
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=tuple(cfin.shape)).astype(np.float32)).to(dev)
+    before = blend.blend_backward.launches
+    got, img = blend.blend_backward(table, keys.tile_start, keys.tile_end,
+                                    g, cfin, **kw)
+    again, img2 = blend.blend_backward(table, keys.tile_start,
+                                       keys.tile_end, g, cfin, **kw)
+    assert blend.blend_backward.launches == before + 2
+    want, img_p = blend.blend_backward_plain(
+        table, keys.tile_start, keys.tile_end, g, cfin, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(img, img2)
+    rows = [0, 1, 2, 3, 4, 5, 6, 7, 8, 10]
+    torch.testing.assert_close(got[rows], want[rows], rtol=1e-3, atol=5e-4)
+    torch.testing.assert_close(got[11], want[11], rtol=0, atol=0)
+    assert float(got[[9, 12, 13, 14, 15]].abs().max()) == 0.0
+    torch.testing.assert_close(img, img_p, rtol=0, atol=1e-4)
+    assert float(want[11].sum()) > 0
+
+
+def test_segment_reduce_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 6, 5000).astype(np.int32)
+    counts[::7] = 0
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    cols = int(counts.sum()) + 37  # trailing lanes of no point
+    rows = rng.normal(size=(12, cols)).astype(np.float32)
+    rows[:, counts.sum():] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (rows, offsets, counts)]
+    before = sr.segment_reduce.launches
+    got = sr.segment_reduce(*args)
+    assert sr.segment_reduce.launches == before + 1
+    want = sr.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (12, 5000)
+    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+def test_train_step_launches_every_kernel(dev):
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    step = trainer.make_train_step(config, 64, 64, device=dev)
+    gt = torch.from_numpy((np.random.default_rng(1).random((64, 64, 3))
+                           * 255).astype(np.uint8)).to(dev)
+    counters = (expand.expand_keys, histogram.bucket_histogram,
+                blend.blend_forward, blend.blend_backward,
+                sr.segment_reduce)
+    before = [f.launches for f in counters]
+    new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
+                             torch.from_numpy(T_ID).to(dev),
+                             torch.from_numpy(make_K()).to(dev), 3)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1] * 5
+    assert np.isfinite(float(metrics["loss"]))
+    assert bool(torch.isfinite(aux["grad_features"]).all())
+    assert float(aux["grad_features"].abs().max()) > 0
+    assert not torch.equal(new.scene.features, state.scene.features)

@@ -46,3 +46,45 @@ def make_odd_scene(n=160, seed=3):
     feats[-4:] = 0.0
     invalid[-4:] = True
     return xyz, feats, invalid
+
+
+def make_saturating_scene(n=300, seed=11):
+    """tests/test_rasterizer.py::test_saturation_path: nearly opaque splats
+    (opacity logit 8, so alpha > 0.99) stacked on the optical axis."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack(
+        [rng.uniform(-0.1, 0.1, n), rng.uniform(-0.1, 0.1, n),
+         rng.uniform(2.0, 3.0, n)], -1).astype(np.float32)
+    feats = np.zeros((n, 56), np.float32)
+    feats[:, 3] = 1.0
+    feats[:, 4:7] = -0.5
+    feats[:, 7] = 8.0
+    feats[:, 8] = rng.normal(size=n)
+    return xyz, feats, np.zeros((n,), bool)
+
+
+def make_train_scene(n=128, seed=0):
+    """tests/test_training.py::make_scene as numpy arrays (xyz, features,
+    invalid)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack(
+        [rng.uniform(-0.8, 0.8, n), rng.uniform(-0.8, 0.8, n),
+         rng.uniform(2.0, 4.0, n)], axis=-1).astype(np.float32)
+    feats = np.zeros((n, 56), np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    feats[:, 4:7] = -2.0
+    feats[:, 7] = 0.0
+    feats[:, 8] = rng.normal(size=n)
+    feats[:, 24] = rng.normal(size=n)
+    feats[:, 40] = rng.normal(size=n)
+    return xyz, feats, np.zeros((n,), bool)
+
+
+def synthetic_target(hw=32):
+    """tests/test_training.py::synthetic_target."""
+    y, x = np.mgrid[0:hw, 0:hw] / hw
+    return np.stack([x, y, 0.5 * (x + y)], axis=-1).astype(np.float32)
+
+
+K32 = np.asarray([[24.0, 0, 16.0], [0, 24.0, 16.0], [0, 0, 1.0]], np.float32)
