@@ -21,7 +21,9 @@ csrc`` with nvcc (sm_90a, one nvcc per source, all at once), then:
 3. times the render with CUDA events after a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
    its plain version's, torch.bincount's (K2's yardstick) and the kernel's
-   bound on an H100 SXM;
+   bound on an H100 SXM; counts the (pixel, key) pairs the blend kernels
+   walk per pixel, per warp and per block, and the warp key steps their
+   per-warp cull keeps (``walked_pairs``);
 1b. (run after 1) holds the backward kernels against their plain versions
    at both sizes, with a seeded image cotangent and the forward's own rgb:
    blend_backward's rows within 5e-4 + 1e-3 |plain| (the JAX package's
@@ -201,19 +203,47 @@ class Frame:
         self.live_keys = int(self.keys.tile_end[-1])
 
 
-def blend_pairs(frame: Frame) -> int:
-    """(pixel, key) pairs the blend must evaluate on this frame: each
-    pixel's keys up to and including the one that stops it."""
+def walked_pairs(frame: Frame) -> dict:
+    """What the blend kernels' work comes to on this frame, counted from
+    the plain per-pixel semantics (a pixel walks its tile's keys until
+    the one that stops it):
+    - pixel: (pixel, key) pairs the blend must evaluate, each pixel's keys
+      up to and including the one that stops it (the bound counts these);
+    - block: pairs walked when a tile's block runs until its last pixel
+      stops (tile pixels x the block's key steps); block_keys: those steps;
+    - included: blended (pixel, key) pairs;
+    - tile_block_keys: each tile's block key steps (the balance of the
+      grid);
+    and, for the kernels' warps (``blend.warp_layout``, prefix ``warp``)
+    and the first design's rows of 32 pixels (``blend.row_major_warps``,
+    prefix ``row_warp``):
+    - warp: (pixel, key) pairs walked when a warp of 32 pixels runs until
+      its last live pixel stops (32 x the warp's key steps);
+    - warp_keys: those warp key steps;
+    - warp_keys_kept: the warp key steps that the per-warp rectangle test
+      (``blend.rect_key_cull_plain``) cannot cull;
+    - warp_keys_included: the warp key steps in which some pixel of the
+      warp blends the key (K4 reduces only these)."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
 
     tw, th = frame.tile
-    i = torch.arange(tw * th, device=frame.table.device)
+    npx = tw * th
+    nw = npx // 32
+    dev = frame.table.device
+    i = torch.arange(npx, device=dev)
     x = ((i % tw).float() + 0.5)[:, None]
     y = ((i // tw).float() + 0.5)[:, None]
-    pairs = 0
+    layouts = {"warp": blend.warp_layout(tw, th, dev),
+               "row_warp": blend.row_major_warps(tw, th, dev)}
+    out = {k_: 0 for k_ in ("pixel", "block", "block_keys", "included")}
+    for pre in layouts:
+        out.update({pre: 0, pre + "_keys": 0, pre + "_keys_kept": 0,
+                    pre + "_keys_included": 0})
+    per_tile = []
     k = frame.keys
     for s, e in zip(k.tile_start.tolist(), k.tile_end.tolist()):
         if e <= s:
+            per_tile.append(0)
             continue
         tab = frame.table[:, s:e]
         dx, dy = x - tab[0], y - tab[1]
@@ -222,11 +252,30 @@ def blend_pairs(frame: Frame) -> int:
         hit = alpha >= blend.ALPHA_SKIP_EPS
         om = 1.0 - torch.where(hit, torch.clamp_max(alpha, blend.ALPHA_CLAMP),
                                torch.zeros_like(alpha))
-        stop = hit & (torch.cumprod(om, 1) < blend.T_SATURATION_EPS)
+        p_incl = torch.cumprod(om, 1)
+        stop = hit & (p_incl < blend.T_SATURATION_EPS)
+        include = hit & (p_incl >= blend.T_SATURATION_EPS)
         first = torch.where(stop.any(1), stop.float().argmax(1) + 1,
                             torch.full_like(stop[:, 0], e - s, dtype=torch.long))
-        pairs += int(first.sum())
-    return pairs
+        steps = torch.arange(e - s, device=dev)
+        for pre, (pixel, *rects) in layouts.items():
+            wfirst = first[pixel].view(nw, 32).max(1).values
+            live = steps[None, :] < wfirst[:, None]  # (warps, keys) walked
+            kept = blend.rect_key_cull_plain(tab, *rects)
+            out[pre + "_keys"] += int(wfirst.sum())
+            out[pre + "_keys_kept"] += int((kept & live).sum())
+            out[pre + "_keys_included"] += int(
+                include[pixel].view(nw, 32, -1).any(1).sum())
+        block = int(first.max())
+        per_tile.append(block)
+        out["pixel"] += int(first.sum())
+        out["block_keys"] += block
+        out["included"] += int(include.sum())
+    for pre in layouts:
+        out[pre] = 32 * out[pre + "_keys"]
+    out["block"] = npx * out["block_keys"]
+    out["tile_block_keys"] = per_tile
+    return out
 
 
 def profile_device(fn, reps: int):
@@ -677,6 +726,7 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
             "train_launches_per_step": {n: v / steps
                                         for n, v in launches.items()},
             "train_peak_mem_gib": peak_gib, "train_stage_ms": stages,
+            "train_device_ms_per_step": busy["device_busy_ms"] / 5,
             "train_profile": busy}
 
 
@@ -851,6 +901,10 @@ def main(argv=None) -> int:
               "segment_reduce": "segment_reduce_kernel"}
     ms = {n: kernel_ms(kern, symbol[n], reps=50)
           for n, (kern, _) in timed.items()}
+    # the blend wrappers also launch the tile-order kernel (heaviest tile
+    # first, csrc/tile_order.cuh) before the blend: its own time a call
+    order_ms = {n: kernel_ms(timed[n][0], "tile_order_kernel", reps=50)
+                for n in ("blend_forward", "blend_backward")}
     call_ms = {n: cuda_ms(kern, reps=50, warmup=5)
                for n, (kern, _) in timed.items()}
     plain_ms = {n: device_ms(p, reps=2 if n == "blend_forward" else 10)
@@ -876,8 +930,12 @@ def main(argv=None) -> int:
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
     total, n = full.expand_kw["total"], full.n_points
-    pairs = blend_pairs(full)
+    walked = walked_pairs(full)
+    pairs = walked["pixel"]
     included = int(plain.count.sum())
+    print("  walked (pixel, key) pairs: " + ", ".join(
+        f"{k_} {v}" for k_, v in walked.items() if k_ != "tile_block_keys"),
+        flush=True)
     px = HEIGHT * WIDTH
     n_rows = d_orig.shape[0]
     work = {
@@ -935,14 +993,19 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms.get(name),
         })
+        if name in order_ms:
+            rows[-1]["tile_order_ms"] = order_ms[name]
 
     record = {
         "card": card, "points": N_POINTS, "image": [WIDTH, HEIGHT],
         "tile": TILE, "frames": len(frames),
         "render_ms_per_frame": frame_ms, "render_mpix_s": mpix_s,
+        "render_device_ms_per_frame": busy["device_busy_ms"] / 18,
         "frames_loop_s": frames_s, "keys": total,
         "live_keys": full.live_keys, "blend_pairs": pairs,
         "blended_pairs": included,
+        "walked_pairs": {k_: v for k_, v in walked.items()
+                         if k_ != "tile_block_keys"},
         "launches_per_frame": {n: launches[n] / len(pose_list)
                                for n in launches},
         "bincount_ms": bincount_ms,

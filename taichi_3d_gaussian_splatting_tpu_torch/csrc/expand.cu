@@ -26,34 +26,12 @@
 //
 // Rounding: built with -fmad=false, and every expression keeps the
 // operation order of the plain PyTorch version, so the cull decisions and
-// the table agree with it bit for bit. min/max propagate NaN like
-// torch.minimum/maximum (a degenerate conic gives NaN and keeps its key).
+// the table agree with it bit for bit. The rectangle minimum is
+// csrc/conic_cull.cuh's, which the blend kernels share (a degenerate conic
+// gives NaN and keeps its key).
 #include <cuda_runtime.h>
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return nan_min(nan_max(v, lo), hi);
-}
-
-struct Conic {
-  float ca, cb, cc;
-  __device__ float q(float xx, float yy) const {
-    return 0.5f * (ca * xx * xx + cc * yy * yy) + cb * xx * yy;
-  }
-  // min over dy in [y0, y1] at fixed dx
-  __device__ float edge_x(float xx, float y0, float y1) const {
-    return q(xx, clip(-cb * xx / cc, y0, y1));
-  }
-  // min over dx in [x0, x1] at fixed dy
-  __device__ float edge_y(float yy, float x0, float x1) const {
-    return q(clip(-cb * yy / ca, x0, x1), yy);
-  }
-};
+#include "conic_cull.cuh"
 
 __global__ void expand_kernel(const int* __restrict__ offsets,
                               const int* __restrict__ dkey,
@@ -87,15 +65,8 @@ __global__ void expand_kernel(const int* __restrict__ offsets,
     const Conic c{attr[2 * (size_t)n + p], attr[3 * (size_t)n + p],
                   attr[4 * (size_t)n + p]};
     const float logro = attr[5 * (size_t)n + p];
-    const float x0 = 0.5f - u_raw;
-    const float x1 = ((float)tile_w - 0.5f) - u_raw;
-    const float y0 = 0.5f - v_raw;
-    const float y1 = ((float)tile_h - 0.5f) - v_raw;
-    const bool inside = (x0 <= 0.0f) && (0.0f <= x1) && (y0 <= 0.0f) &&
-                        (0.0f <= y1);
-    float qmin = nan_min(nan_min(c.edge_x(x0, y0, y1), c.edge_x(x1, y0, y1)),
-                         nan_min(c.edge_y(y0, x0, x1), c.edge_y(y1, x0, x1)));
-    if (inside) qmin = 0.0f;
+    const float qmin = c.rect_min(0.5f - u_raw, ((float)tile_w - 0.5f) - u_raw,
+                                  0.5f - v_raw, ((float)tile_h - 0.5f) - v_raw);
     valid = !(qmin > logro + cull_bias);
   }
 

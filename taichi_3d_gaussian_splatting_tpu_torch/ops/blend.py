@@ -3,8 +3,10 @@ backward.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py``
 (``blend_forward`` and ``blend_backward``). CUDA tensors go to the kernels
-in ``csrc/blend.cu`` and ``csrc/blend_backward.cu`` (one block per tile, a
-sequential transmittance per pixel); CPU tensors to the plain versions
+in ``csrc/blend.cu`` and ``csrc/blend_backward.cu`` (one block per tile,
+heaviest tiles first, a sequential transmittance per pixel, each warp
+walking only the keys that may reach one of its pixels:
+``warp_key_cull_plain``); CPU tensors to the plain versions
 below (the forward per tile as a dense (pixels, keys) cumulative product,
 as ``blend_reference.blend_dense``; the backward as every tile's keys
 walked in step, vectorized over tiles and pixels).
@@ -32,13 +34,23 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.blend_reference import (
     T_SATURATION_EPS,
     straight_through_clamp,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops.expand import (
+    CULL_BIAS,
+    rect_qmin,
+)
 from taichi_3d_gaussian_splatting_tpu_torch.ops.tiling import tile_wh
 
 __all__ = ["ALPHA_CLAMP", "ALPHA_SKIP_EPS", "T_SATURATION_EPS",
            "blend_forward", "blend_forward_plain", "blend_backward",
-           "blend_backward_plain"]
+           "blend_backward_plain", "rect_key_cull_plain", "row_major_warps",
+           "warp_key_cull_plain", "warp_layout"]
 
 MAX_TILE_PIXELS = 1024  # one CUDA thread per pixel
+WARP = 32
+# the warp cull keeps a key unless its quadratic's minimum over the warp's
+# rectangle exceeds logro + log 255 + 1e-3 (K1's tile test) by more than
+# this share of the magnitudes the blend's f32 exponent rounds at
+WARP_CULL_SLACK = 2.0 ** -19
 
 
 def _pixel_centres(tile_w: int, tile_h: int, device):
@@ -46,6 +58,81 @@ def _pixel_centres(tile_w: int, tile_h: int, device):
     x = (i % tile_w).float() + 0.5
     y = torch.div(i, tile_w, rounding_mode="floor").float() + 0.5
     return x[:, None], y[:, None]
+
+
+def warp_layout(tile_w: int, tile_h: int, device=None):
+    """The blend kernels' thread -> pixel map (``csrc/warp_layout.cuh``):
+    (pixel (npx,) long, the row-major pixel index thread i takes; x0, x1,
+    y0, y1, each (num_warps, 1) f32, the pixel-centre rectangle of each
+    warp of 32 threads). When tile_w % 8 == 0 and tile_h % 4 == 0 a warp
+    takes an 8x4 block of pixels (lane l: column l % 8, row l // 8), the
+    blocks in row-major order; otherwise thread i takes pixel i and a
+    warp's rectangle covers whole rows when it spans rows."""
+    if tile_w % 8 == 0 and tile_h % 4 == 0:
+        npx = tile_w * tile_h
+        t = torch.arange(npx, device=device)
+        w0 = torch.arange(0, npx, WARP, device=device)  # a warp's 1st thread
+        per_row = tile_w // 8
+
+        def origin(tt):  # (column, row) of the thread's warp block
+            w = torch.div(tt, WARP, rounding_mode="floor")
+            return (w % per_row) * 8, torch.div(
+                w, per_row, rounding_mode="floor") * 4
+        cx, cy = origin(t)
+        lane = t % WARP
+        pixel = (cy + torch.div(lane, 8, rounding_mode="floor")) * tile_w \
+            + cx + lane % 8
+        c0, r0 = origin(w0)
+        c1, r1 = c0 + 7, r0 + 3
+        return (pixel,) + tuple(c.float()[:, None] + 0.5
+                                for c in (c0, c1, r0, r1))
+    return row_major_warps(tile_w, tile_h, device)
+
+
+def row_major_warps(tile_w: int, tile_h: int, device=None):
+    """:func:`warp_layout`'s fallback: thread i takes pixel i, and a warp's
+    rectangle covers whole rows when it spans rows."""
+    npx = tile_w * tile_h
+    w0 = torch.arange(0, npx, WARP, device=device)  # first thread of a warp
+    p1 = torch.clamp_max(w0 + WARP - 1, npx - 1)
+    r0 = torch.div(w0, tile_w, rounding_mode="floor")
+    r1 = torch.div(p1, tile_w, rounding_mode="floor")
+    one_row = r0 == r1
+    c0 = torch.where(one_row, w0 % tile_w, torch.zeros_like(w0))
+    c1 = torch.where(one_row, p1 % tile_w, torch.full_like(p1, tile_w - 1))
+    return (torch.arange(npx, device=device),) + tuple(
+        c.float()[:, None] + 0.5 for c in (c0, c1, r0, r1))
+
+
+def warp_key_cull_plain(tab: torch.Tensor, *, tile) -> torch.Tensor:
+    """Which keys each warp of a tile must evaluate: (num_warps, n) bool
+    for the table columns ``tab`` (rows u, v, conic a, b, c, logro, ...);
+    warps as in :func:`warp_layout`.
+
+    The kernels' per-warp cull (``csrc/conic_cull.cuh``), in the same f32
+    operations: a key is dropped for a warp when its quadratic's minimum
+    over the warp's pixel-centre rectangle exceeds logro + log 255 + 1e-3
+    (K1's tile test) + WARP_CULL_SLACK x the magnitude of the exponent's
+    terms, so no pixel of the warp can reach alpha >= 1/255 in f32. A
+    conic that is NaN or not positive definite is never dropped. The
+    kernels do not call this; the tests and ``chip_smoke.py`` do."""
+    tile_w, tile_h = tile_wh(tile)
+    return rect_key_cull_plain(tab, *warp_layout(tile_w, tile_h,
+                                                 tab.device)[1:])
+
+
+def rect_key_cull_plain(tab, px0, px1, py0, py1) -> torch.Tensor:
+    """:func:`warp_key_cull_plain` for any rectangles of pixel centres
+    (each (m, 1) f32): (m, n) bool."""
+    u, v, ca, cb, cc, logro = (tab[i][None, :] for i in range(6))
+    x0, x1, y0, y1 = px0 - u, px1 - u, py0 - v, py1 - v
+    pd = (ca > 0.0) & (cc > 0.0) & (ca * cc > cb * cb)
+    xm = torch.maximum(x0.abs(), x1.abs())
+    ym = torch.maximum(y0.abs(), y1.abs())
+    mag = (0.5 * (ca * xm * xm + cc * ym * ym) + cb.abs() * xm * ym
+           + logro.abs())
+    qmin = rect_qmin(ca, cb, cc, x0, x1, y0, y1)
+    return ~pd | ~(qmin > logro + (CULL_BIAS + WARP_CULL_SLACK * mag))
 
 
 def _tile_state(tab, x, y):
@@ -129,13 +216,15 @@ def blend_forward(table: torch.Tensor, tile_start: torch.Tensor,
                       device=table.device)
     if num_tiles == 0:
         return out
+    order = torch.empty((num_tiles,), dtype=torch.int32, device=table.device)
     launch = cuda_build.bind("blend", "blend_forward_launch", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     err = launch(table.data_ptr(), table.shape[1], tile_start.data_ptr(),
-                 tile_end.data_ptr(), num_tiles, tile_w, tile_h,
-                 int(rgb_only), out.data_ptr(), cuda_build.stream_of(table))
+                 tile_end.data_ptr(), order.data_ptr(), num_tiles, tile_w,
+                 tile_h, int(rgb_only), CULL_BIAS, out.data_ptr(),
+                 cuda_build.stream_of(table))
     blend_forward.launches += 1
     cuda_build.check(err, "blend_forward")
     return out
@@ -258,16 +347,17 @@ def blend_backward(table: torch.Tensor, tile_start: torch.Tensor,
                       device=table.device)
     if num_tiles == 0:
         return d_table, img
+    order = torch.empty((num_tiles,), dtype=torch.int32, device=table.device)
     launch = cuda_build.bind("blend_backward", "blend_backward_launch", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     err = launch(table.data_ptr(), table.shape[1], tile_start.data_ptr(),
-                 tile_end.data_ptr(), d_rgb_tiles.data_ptr(),
+                 tile_end.data_ptr(), order.data_ptr(), d_rgb_tiles.data_ptr(),
                  cfin_tiles.data_ptr(), num_tiles, tile_w, tile_h,
                  int(extra_info), int(extra_info and imggrad),
-                 d_table.data_ptr(), img.data_ptr(),
+                 CULL_BIAS, d_table.data_ptr(), img.data_ptr(),
                  cuda_build.stream_of(table))
     blend_backward.launches += 1
     cuda_build.check(err, "blend_backward")

@@ -21,10 +21,34 @@ LOG255 = 5.541263545158426  # log(255): the 1/255 alpha-skip in log space
 CULL_MARGIN = 1e-3  # keep pairs within fp jitter of the alpha threshold: the
                     # cull and the blend evaluate the quadratic with
                     # different expressions
+CULL_BIAS = LOG255 + CULL_MARGIN  # a pair is culled when q_min > logro + this
 
 
 def _nan_clip(v, lo, hi):
     return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def rect_qmin(ca, cb, cc, x0, x1, y0, y1):
+    """Minimum of the blend quadratic q = 1/2 (a dx^2 + c dy^2) + b dx dy
+    over the rectangle [x0, x1] x [y0, y1] of offsets from the splat
+    centre, for a positive-definite conic: 0 when the centre lies inside,
+    else the least of the four edge minima. NaN propagates (a degenerate
+    conic gives NaN). ``csrc/conic_cull.cuh`` takes the same operations in
+    the same order."""
+
+    def q_at(xx, yy):
+        return 0.5 * (ca * xx * xx + cc * yy * yy) + cb * xx * yy
+
+    def edge_x(xx):  # min over dy in [y0, y1] at fixed dx
+        return q_at(xx, _nan_clip(-cb * xx / cc, y0, y1))
+
+    def edge_y(yy):  # min over dx in [x0, x1] at fixed dy
+        return q_at(_nan_clip(-cb * yy / ca, x0, x1), yy)
+
+    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
+    qmin = torch.minimum(torch.minimum(edge_x(x0), edge_x(x1)),
+                         torch.minimum(edge_y(y0), edge_y(y1)))
+    return torch.where(inside, torch.zeros_like(qmin), qmin)
 
 
 def expand_keys_plain(offsets, counts, dkey, base, h, attr_cols, *, total,
@@ -48,26 +72,10 @@ def expand_keys_plain(offsets, counts, dkey, base, h, attr_cols, *, total,
 
     valid = torch.ones((total,), dtype=torch.bool, device=dev)
     if exact_cull:
-        ca, cb, cc, logro = a[2], a[3], a[4], a[5]
-        x0 = 0.5 - u_raw
-        x1 = (tile_w - 0.5) - u_raw
-        y0 = 0.5 - v_raw
-        y1 = (tile_h - 0.5) - v_raw
-
-        def q_at(xx, yy):
-            return 0.5 * (ca * xx * xx + cc * yy * yy) + cb * xx * yy
-
-        def edge_x(xx):  # min over dy in [y0, y1] at fixed dx
-            return q_at(xx, _nan_clip(-cb * xx / cc, y0, y1))
-
-        def edge_y(yy):  # min over dx in [x0, x1] at fixed dy
-            return q_at(_nan_clip(-cb * yy / ca, x0, x1), yy)
-
-        inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
-        qmin = torch.minimum(torch.minimum(edge_x(x0), edge_x(x1)),
-                             torch.minimum(edge_y(y0), edge_y(y1)))
-        qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
-        valid = ~(qmin > logro + (LOG255 + CULL_MARGIN))
+        qmin = rect_qmin(a[2], a[3], a[4], 0.5 - u_raw,
+                         (tile_w - 0.5) - u_raw, 0.5 - v_raw,
+                         (tile_h - 0.5) - v_raw)
+        valid = ~(qmin > a[5] + CULL_BIAS)
 
     fused = torch.where(valid, (tid << dbits) + dkey[p],
                         torch.full_like(tid, sentinel))
@@ -124,7 +132,7 @@ def expand_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
     err = launch(offsets.data_ptr(), dkey.data_ptr(), base.data_ptr(),
                  h.data_ptr(), attr_cols.data_ptr(), n, total, tiles_u,
                  tile_w, tile_h, dbits, sentinel, int(exact_cull),
-                 LOG255 + CULL_MARGIN, fused.data_ptr(), table.data_ptr(),
+                 CULL_BIAS, fused.data_ptr(), table.data_ptr(),
                  cuda_build.stream_of(offsets))
     expand_keys.launches += 1
     cuda_build.check(err, "expand_keys")

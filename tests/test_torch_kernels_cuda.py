@@ -97,7 +97,11 @@ def test_expand_matches_plain(dev, exact_cull):
     torch.testing.assert_close(table, table_p, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("tile", [(32, 32), (32, 16)])
+# a warp takes an 8x4 pixel block where the shape allows, so its cull
+# rectangle spans rows at every shape; (48, 2) falls back to row-major
+# warps that span rows, (12, 4) also to a partial last warp
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16), (32, 8), (16, 16),
+                                  (48, 2), (12, 4)])
 @pytest.mark.parametrize("rgb_only", [False, True])
 @pytest.mark.parametrize("dense", [False, True])
 def test_blend_matches_plain(dev, tile, rgb_only, dense):
@@ -137,7 +141,8 @@ def test_rasterize_launches_every_kernel(dev):
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
 
 
-@pytest.mark.parametrize("tile", [(32, 32), (32, 16)])
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16), (32, 8), (16, 16),
+                                  (48, 2)])
 @pytest.mark.parametrize("dense", [False, True])
 def test_blend_backward_matches_plain(dev, tile, dense):
     cfg, cam, raw, radius, invalid, _ = _frame(
