@@ -4,41 +4,52 @@
     python3 chip_smoke.py [--out record.json]
 
 Builds the port's CUDA kernels from ``taichi_3d_gaussian_splatting_tpu_torch/
-csrc`` with nvcc (sm_90a, one nvcc per source, all at once), then:
+csrc`` with nvcc (sm_90a, one nvcc per source, all at once), and beside
+them the first design of K1 and K5 from ``kernel_variants/`` (the
+yardstick of their redesign), then:
 
 1. holds each kernel against its plain PyTorch version on the card, on the
    same inputs: a small frame (64x64, 200 points) and the full-width frame
-   (428,687 points, 960x544, 32x32 tiles). expand_keys and bucket_histogram
-   must match bit for bit; blend_forward within 1e-4 (rgb, alpha) and 5e-4
-   (depth), with the count exact at the small size and differing on under
-   0.01% of the full-width pixels (the plain version's parallel cumprod may
-   flip a pixel sitting on the 1e-4 stop);
+   (428,687 points, 960x544, 32x32 tiles). The key expansion's two passes
+   (slot_keys: fused keys and owners; sorted_table: the table after the
+   sort) and bucket_histogram must match bit for bit, and the fused keys,
+   the sort's permutation and the sorted table must equal the first
+   design's keys and its pre-sort table gathered by the permutation;
+   blend_forward within 1e-4 (rgb, alpha) and 5e-4 (depth), with the count
+   exact at the small size and differing on under 0.01% of the full-width
+   pixels (the plain version's parallel cumprod may flip a pixel sitting
+   on the 1e-4 stop);
 2. renders 9 full-width frames through ``apps/render.py``'s
    GaussianPointRenderer (the user's entry point; the scene goes through a
    .ply file), with every kernel's launch count set to 0 before and read
-   after; checks the frames, and one full-output frame against the plain
-   blend;
+   after, and the first design's data movement (the table gather, the
+   regroup) counted and held at 0; checks the frames, and one full-output
+   frame against the plain blend;
 3. times the render with CUDA events after a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
-   its plain version's, torch.bincount's (K2's yardstick) and the kernel's
-   bound on an H100 SXM; counts the (pixel, key) pairs the blend kernels
-   walk per pixel, per warp and per block, and the warp key steps their
-   per-warp cull keeps (``walked_pairs``);
+   its plain version's, its library call's (torch.bincount for K2; for K5
+   the chain index_copy_ + torch.segment_reduce) and the kernel's bound on
+   an H100 SXM; times the first design's stages around K1 and K5
+   (``kernel_variants/keys_step0.py``: its K1, the sort, the table gather,
+   the regroup, its K5); counts the (pixel, key) pairs the blend kernels
+   walk per pixel, per warp and per block,
+   and the warp key steps their per-warp cull keeps (``walked_pairs``);
 1b. (run after 1) holds the backward kernels against their plain versions
    at both sizes, with a seeded image cotangent and the forward's own rgb:
    blend_backward's rows within 5e-4 + 1e-3 |plain| (the JAX package's
    gradient gate), its count exact at 64x64 and differing on under 0.01%
    of the full-width keys, its |grad_uv| image within 1e-4, and two runs
-   bit-identical; segment_reduce within 1e-5 (1 + sum of |terms|) (the
-   plain index_add_ adds with atomics on the card);
+   bit-identical; segment_reduce (through the inverse key permutation) bit
+   for bit against its plain version and the first design's regroup +
+   kernel;
 4. trains at full width through ``training/trainer.py``'s make_train_step
    (bench.py's train step: TrainConfig defaults, SH degree 3): 3 warm-up
    and 20 timed steps from a state made by ``convert.train_state_from_jax``
    of numpy arrays, towards a uint8 target rendered from the same scene
    with seeded noise on its DC colours. Checks every loss and gradient
-   finite, the loss falling, and every kernel launched in the timed steps
-   (blend_backward and segment_reduce once a step); times the step, its
-   stages and the device's busy share.
+   finite, the loss falling, every kernel launched once a timed step, and
+   no table gather or regroup; times the step, its stages and the
+   device's busy share.
 
 The scene is a seeded copy of bench.py's surround scene (random weights).
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -48,11 +59,13 @@ exits non-zero; without a CUDA card it exits 1 before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -185,22 +198,37 @@ class Frame:
         r = tiling.point_key_ranges(raw.uv, raw.depth, radius, visible,
                                     camera.width, camera.height, self.tile,
                                     cfg.depth_to_sort_key_scale)
-        att = R.attr_columns(raw)
-        att = torch.where(torch.isfinite(att), att, torch.zeros_like(att))
+        # finite, as the first design's K1 needs them (the kernels read
+        # non-finite entries as 0)
+        att = torch.nan_to_num(R.attr_columns(raw), 0.0, 0.0, 0.0)
         self.n_points = xyz.shape[0]
-        self.expand_args = (r.offsets, r.counts, r.dkey, r.base, r.h,
-                            att.contiguous())
+        self.expand_args = (r.offsets, r.counts, r.dkey, r.base, r.h, att)
         self.expand_kw = dict(
             total=r.total, tiles_u=self.tiles_x, tile_w=self.tile[0],
             tile_h=self.tile[1], dbits=self.dbits,
             sentinel=((self.num_tiles + 1) << self.dbits) - 1,
             exact_cull=cfg.exact_tile_cull)
+        self.table_kw = {k: self.expand_kw[k] for k in (
+            "tiles_u", "tile_w", "tile_h", "dbits", "sentinel")}
         self.keys, self.table, _ = R.build_keys(raw, radius, invalid, camera,
                                                 cfg)
         self.tile_ids = (self.keys.fused >> self.dbits).contiguous()
         self.blend_kw = dict(tile=self.tile, tiles_x=self.tiles_x,
                              tiles_y=self.tiles_y)
         self.live_keys = int(self.keys.tile_end[-1])
+
+
+def small_frame(dev) -> Frame:
+    """The 64x64 frame of ``small_scene`` from the identity pose."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xyz, feats, invalid = small_scene()
+    K = put(np.asarray([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], np.float32))
+    return Frame(put(xyz), put(feats), put(invalid),
+                 torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev),
+                 torch.zeros(3, device=dev), R.Camera(K, 64, 64),
+                 R.RasterizerConfig(tile_size=TILE))
 
 
 def walked_pairs(frame: Frame) -> dict:
@@ -353,22 +381,23 @@ def stage_ms(renderer, q, t) -> dict:
     r = ranges()
     cols = lambda: R.attr_columns(raw)  # noqa: E731
     out["attribute columns"] = both_ms(cols, reps)
-    att = cols().contiguous()
+    att = cols()
     tiles_u = cam.width // tile[0]
     num_tiles = tiles_u * (cam.height // tile[1])
     dbits = tiling._depth_bits(num_tiles)
-    exp = lambda: expand.expand_keys(  # noqa: E731
+    tkw = dict(tiles_u=tiles_u, tile_w=tile[0], tile_h=tile[1], dbits=dbits,
+               sentinel=((num_tiles + 1) << dbits) - 1)
+    k1a = lambda: expand.slot_keys(  # noqa: E731
         r.offsets, r.counts, r.dkey, r.base, r.h, att, total=r.total,
-        tiles_u=tiles_u, tile_w=tile[0], tile_h=tile[1], dbits=dbits,
-        sentinel=((num_tiles + 1) << dbits) - 1, exact_cull=True)
-    out["expand_keys (K1)"] = both_ms(exp, reps)
-    fused, table = exp()
+        exact_cull=True, **tkw)
+    out["slot keys (K1a)"] = both_ms(k1a, reps)
+    fused, owner = k1a()
     out["stable key sort"] = both_ms(lambda: torch.sort(fused, stable=True),
                                      reps)
     fused_s, perm = torch.sort(fused, stable=True)
-    out["table gather by the sort permutation"] = both_ms(
-        lambda: table.index_select(1, perm), reps)
-    table_s = table.index_select(1, perm)
+    k1b = lambda: expand.sorted_table(fused_s, perm, owner, att, **tkw)  # noqa: E731
+    out["sorted table (K1b)"] = both_ms(k1b, reps)
+    table_s = k1b()
 
     def ranges_k2():
         hist = histogram.bucket_histogram(fused_s >> dbits, num_tiles)
@@ -387,6 +416,43 @@ def stage_ms(renderer, q, t) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def first_design_calls():
+    """Counts, while open, what the first design ran around K1 and K5 and
+    this one must not: a (16, total) table's index_select along its keys
+    (the gather after the sort), ``tiling.regroup_rows_by_slot`` and
+    segment_reduce on pre-sort rows."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
+
+    calls = {"table index_select": 0, "regroup_rows_by_slot": 0}
+    regroup = tiling.regroup_rows_by_slot
+    selects = (torch.Tensor.index_select, torch.index_select)
+
+    def count_regroup(*a, **kw):
+        calls["regroup_rows_by_slot"] += 1
+        return regroup(*a, **kw)
+
+    def counted(select):
+        def index_select(t, dim, index, *a, **kw):
+            if t.dim() == 2 and t.shape[0] == 16 and dim in (1, -1):
+                calls["table index_select"] += 1
+            return select(t, dim, index, *a, **kw)
+        return index_select
+
+    before = sr.segment_reduce.launches
+    tiling.regroup_rows_by_slot = count_regroup
+    torch.Tensor.index_select = counted(selects[0])
+    torch.index_select = counted(selects[1])
+    try:
+        yield calls
+    finally:
+        tiling.regroup_rows_by_slot = regroup
+        torch.Tensor.index_select, torch.index_select = selects
+        calls["segment_reduce on pre-sort rows"] = (sr.segment_reduce.launches
+                                                    - before)
+
+
 def device_busy(fn, reps: int) -> dict:
     """The device's busy share of a window of reps calls of fn, and the
     device events that take the most of its time."""
@@ -403,19 +469,52 @@ def device_busy(fn, reps: int) -> dict:
 
 # --- phase 1: kernels against their plain versions ------------------------
 
-def check_kernels(frame: Frame, label: str, full_width: bool) -> dict:
-    from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
+def check_expand(frame: Frame, label: str, first) -> float:
+    """K1a and K1b against their plain versions, and the keys, the sort's
+    permutation and the sorted table against the first design's (its keys
+    and pre-sort table, gathered by the permutation), all bit for bit.
+    Returns the largest difference (0)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import expand
 
-    errs = {}
-    fused, table = expand.expand_keys(*frame.expand_args, **frame.expand_kw)
-    fused_p, table_p = expand.expand_keys_plain(*frame.expand_args,
-                                                **frame.expand_kw)
+    att = frame.expand_args[5]
+    fused, owner = expand.slot_keys(*frame.expand_args, **frame.expand_kw)
+    fused_p, owner_p = expand.slot_keys_plain(*frame.expand_args,
+                                              **frame.expand_kw)
+    fused_s, perm = torch.sort(fused, stable=True)
+    table = expand.sorted_table(fused_s, perm, owner, att, **frame.table_kw)
+    table_p = expand.sorted_table_plain(fused_s, perm, owner, att,
+                                        **frame.table_kw)
+    fused_1, table_1 = first.expand_keys(*frame.expand_args,
+                                         **frame.expand_kw)
+    _, perm_1 = torch.sort(fused_1, stable=True)
+    gathered_1 = table_1.index_select(1, perm_1)
+    gathered_p = expand.expand_keys_plain(
+        *frame.expand_args, **frame.expand_kw)[1].index_select(1, perm)
     torch.cuda.synchronize()
-    if not (torch.equal(fused, fused_p) and torch.equal(table, table_p)):
-        raise AssertionError(f"{label}: expand_keys differs from its plain "
-                             f"version (fused {max_abs(fused, fused_p)}, "
-                             f"table {max_abs(table, table_p)})")
-    errs["expand_keys"] = max(max_abs(fused, fused_p), max_abs(table, table_p))
+    pairs = {"K1a fused vs plain": (fused, fused_p),
+             "K1a owner vs plain": (owner, owner_p),
+             "K1b table vs plain": (table, table_p),
+             "fused vs the first design": (fused, fused_1),
+             "orig_slot vs the first design": (perm, perm_1),
+             "sorted table vs the first design's, gathered": (table,
+                                                              gathered_1),
+             "sorted table vs the plain pre-sort table, gathered": (
+                 table, gathered_p),
+             "main path's sorted table": (frame.table, table),
+             "main path's orig_slot": (frame.keys.orig_slot, perm)}
+    bad = [n for n, (a, b) in pairs.items() if not torch.equal(a, b)]
+    print(f"  {label} expand (K1a, K1b): {len(pairs) - len(bad)} of "
+          f"{len(pairs)} bit-identity checks hold", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: expand differs: " + "; ".join(
+            f"{n} (max |d| {max_abs(*pairs[n])})" for n in bad))
+    return max(max_abs(a, b) for a, b in pairs.values())
+
+
+def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, histogram
+
+    errs = {"expand_keys": check_expand(frame, label, first)}
 
     ids = frame.tile_ids
     hist = histogram.bucket_histogram(ids, frame.num_tiles)
@@ -453,11 +552,12 @@ def check_kernels(frame: Frame, label: str, full_width: bool) -> dict:
 
 # --- phase 1b: the backward kernels against their plain versions ---------
 
-def check_backward_kernels(frame: Frame, label: str, full_width: bool):
+def check_backward_kernels(frame: Frame, label: str, full_width: bool,
+                           first):
     """blend_backward and segment_reduce against their plain versions on
-    the frame's keys, a seeded rgb cotangent and the forward's rgb. Returns
-    (errors, K4 plain device ms of its one call, the inputs kept for
-    timing)."""
+    the frame's keys, a seeded rgb cotangent and the forward's rgb, and
+    segment_reduce against the first design's. Returns (errors, K4 plain
+    device ms of its one call, the inputs kept for timing)."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, tiling
     from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
 
@@ -508,22 +608,24 @@ def check_backward_kernels(frame: Frame, label: str, full_width: bool):
     if float(want[11].sum()) <= 0:
         raise AssertionError(f"{label}: no pixel includes any key")
 
-    d_orig = tiling.regroup_rows_by_slot(got[0:12], k.orig_slot)
-    seg = sr.segment_reduce(d_orig, k.offsets, k.counts)
-    seg_p = sr.segment_reduce_plain(d_orig, k.offsets, k.counts)
+    rows = got[0:12]
+    inv = tiling.inverse_permutation(k.orig_slot)
+    seg = sr.segment_reduce_sorted(rows, inv, k.offsets, k.counts)
+    seg_p = sr.segment_reduce_sorted_plain(rows, inv, k.offsets, k.counts)
+    seg_1 = first.segment_reduce(tiling.regroup_rows_by_slot(rows, k.orig_slot),
+                                 k.offsets, k.counts)
     torch.cuda.synchronize()
-    e_seg = max_abs(seg, seg_p)
-    # index_add_ adds with atomics on the card, in no fixed order, and the
-    # segments' terms cancel: the sum-order bound is 1e-5 of the sum of
-    # the terms' magnitudes
-    scale = 1 + sr.segment_reduce_plain(d_orig.abs(), k.offsets, k.counts)
-    worst = float(((seg - seg_p).abs() / scale).max()) if seg.numel() else 0.0
-    print(f"  {label} segment_reduce: max|d| {e_seg:.3g}, worst "
-          f"|d| / (1 + sum|terms|) {worst:.3g} (gate 1e-5)", flush=True)
-    if worst > 1e-5:
-        raise AssertionError(f"{label}: segment_reduce outside tolerance")
+    e_seg = max(max_abs(seg, seg_p), max_abs(seg, seg_1))
+    # both add each segment's lanes in slot order from 0
+    print(f"  {label} segment_reduce (through the inverse permutation): "
+          f"bit-identical to its plain version {torch.equal(seg, seg_p)}, to "
+          f"the first design's regroup + kernel {torch.equal(seg, seg_1)}",
+          flush=True)
+    if not (torch.equal(seg, seg_p) and torch.equal(seg, seg_1)):
+        raise AssertionError(f"{label}: segment_reduce differs (max |d| "
+                             f"{e_seg})")
     return ({"blend_backward": e_rows, "segment_reduce": e_seg}, plain_ms,
-            {"bwd_args": args, "d_orig": d_orig})
+            {"bwd_args": args, "rows": rows, "inv": inv})
 
 
 # --- phase 4: training --------------------------------------------------------
@@ -607,7 +709,7 @@ def train_stage_ms(config, state, inputs) -> dict:
     raw_v = R.RawAttrs(*(a.detach() for a in raw))
     keys_fn = lambda: R.build_keys(raw_v, radius.detach(), s.invalid,  # noqa: E731
                                    cam, cfg)
-    out["tiling (cull, keys, K1, sort, gather, K2)"] = both_ms(keys_fn, reps)
+    out["tiling (cull, keys, K1a, sort, K1b, K2)"] = both_ms(keys_fn, reps)
     keys, table, visible = keys_fn()
     k3 = lambda: blend.blend_forward(  # noqa: E731
         table, keys.tile_start, keys.tile_end, tile=tile, tiles_x=grid[0],
@@ -635,11 +737,13 @@ def train_stage_ms(config, state, inputs) -> dict:
     out["blend_backward (K4)"] = both_ms(k4, reps)
     d_table, _ = k4()
     rows = d_table[0:12]
-    regroup = lambda: tiling.regroup_rows_by_slot(rows, keys.orig_slot)  # noqa: E731
-    out["regroup by original slot"] = both_ms(regroup, reps)
-    d_orig = regroup()
-    k5 = lambda: sr.segment_reduce(d_orig, keys.offsets, keys.counts)  # noqa: E731
-    out["segment_reduce (K5)"] = both_ms(k5, reps)
+    inv_fn = lambda: tiling.inverse_permutation(keys.orig_slot)  # noqa: E731
+    out["inverse key permutation"] = both_ms(inv_fn, reps)
+    inv = inv_fn()
+    k5 = lambda: sr.segment_reduce_sorted(rows, inv, keys.offsets,  # noqa: E731
+                                          keys.counts)
+    out["segment_reduce (K5, through the inverse permutation)"] = both_ms(
+        k5, reps)
     d_raw, (mag, npix, _) = R._blend_bwd_impl(
         raw_v, keys, table, out_tiles, d_tiles, tile, grid, cfg)
 
@@ -689,29 +793,29 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
     steps = 20
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(steps):
-        metrics = one_step()
-    end.record()
-    torch.cuda.synchronize()
+    with first_design_calls() as off_path:
+        start.record()
+        for _ in range(steps):
+            metrics = one_step()
+        end.record()
+        torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
     launches = {name: f.launches for name, f in kernels.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     loss_list = [float(v) for v in losses]
     print(f"  {steps} timed steps: {step_ms:.3f} ms/step; losses "
           f"{loss_list[0]:.6f} (first) -> {loss_list[-1]:.6f} (last); "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; first design's calls {off_path}", flush=True)
     if not all(bool(v) for v in finite):
         raise AssertionError("a non-finite loss or gradient")
     if not loss_list[-1] < loss_list[0]:
         raise AssertionError("the loss did not fall")
     for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the train step never launched {name}")
-    for name in ("blend_backward", "segment_reduce"):
-        if launches[name] != steps:
-            raise AssertionError(f"{name}: {launches[name]} launches in "
-                                 f"{steps} steps")
+        if n != steps:
+            raise AssertionError(f"{name}: {n} launches in {steps} steps")
+    if any(off_path.values()):
+        raise AssertionError(f"the train step ran the first design's data "
+                             f"movement: {off_path}")
     stages = train_stage_ms(config, state, inputs)
     for name, v in stages.items():
         print(f"  train stage {name}: wall {v['wall_ms']:.4f} ms, device "
@@ -722,7 +826,7 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
             "train_mpix_s": HEIGHT * WIDTH / 1e6 / (step_ms / 1e3),
             "train_steps_timed": steps, "train_losses": loss_list,
             "train_num_keys": int(metrics["num_keys"]),
-            "train_launches": launches,
+            "train_launches": launches, "train_first_design_calls": off_path,
             "train_launches_per_step": {n: v / steps
                                         for n, v in launches.items()},
             "train_peak_mem_gib": peak_gib, "train_stage_ms": stages,
@@ -748,37 +852,48 @@ def main(argv=None) -> int:
     )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 
+    from kernel_variants import keys_step0
+
     dev = torch.device("cuda")
     R.pin_f32_matmul()
     card = card_line()
     t0 = time.perf_counter()
+    first_dir = tempfile.TemporaryDirectory()
+    first_build = threading.Thread(target=keys_step0.build_v1,
+                                   args=(Path(first_dir.name),))
+    first_build.start()  # its two nvcc run beside the package's five
     build_s = cuda_build.build_all()
-    print(f"built {sorted(build_s)} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc in parallel: {build_s})", flush=True)
-    render_kernels = {"expand_keys": expand.expand_keys,
+    first_build.join()
+    first = keys_step0.FirstDesign(Path(first_dir.name))
+    print(f"built {sorted(build_s)} and the first design's K1, K5 in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc in parallel: {build_s})",
+          flush=True)
+    # every kernel of the main path, by its launch counter; K1 is two
+    render_kernels = {"slot_keys": expand.slot_keys,
+                      "sorted_table": expand.sorted_table,
                       "bucket_histogram": histogram.bucket_histogram,
                       "blend_forward": blend.blend_forward}
     kernels = dict(render_kernels, blend_backward=blend.blend_backward,
-                   segment_reduce=sr.segment_reduce)
+                   segment_reduce_sorted=sr.segment_reduce_sorted)
+    counters_of = {"expand_keys": ("slot_keys", "sorted_table"),
+                   "bucket_histogram": ("bucket_histogram",),
+                   "blend_forward": ("blend_forward",),
+                   "blend_backward": ("blend_backward",),
+                   "segment_reduce": ("segment_reduce_sorted",)}
 
     # phase 1a: the small frame
-    xyz, feats, invalid = small_scene()
-    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     q_id = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
     t_id = torch.zeros(3, device=dev)
-    K_small = put(np.asarray([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]],
-                             np.float32))
-    small = Frame(put(xyz), put(feats), put(invalid), q_id, t_id,
-                  R.Camera(K_small, 64, 64), R.RasterizerConfig(tile_size=TILE))
+    small = small_frame(dev)
     t_run = time.perf_counter()
 
     def phase(title):
         print(f"{title} [{time.perf_counter() - t_run:.1f} s]", flush=True)
 
     phase("phase 1: kernels against their plain versions")
-    check_kernels(small, "64x64", full_width=False)
+    check_kernels(small, "64x64", full_width=False, first=first)
     phase("phase 1b: backward kernels against their plain versions")
-    check_backward_kernels(small, "64x64", full_width=False)
+    check_backward_kernels(small, "64x64", full_width=False, first=first)
 
     # the full-width scene, through a .ply file as a user would load it
     xyz, feats = truck_scene_surround(N_POINTS)
@@ -800,9 +915,10 @@ def main(argv=None) -> int:
                  full_cfg)
     print(f"full-width frame: {N_POINTS} points, {full.expand_kw['total']} "
           f"keys, {full.live_keys} live after the exact cull", flush=True)
-    errs = check_kernels(full, f"{WIDTH}x{HEIGHT}", full_width=True)
+    errs = check_kernels(full, f"{WIDTH}x{HEIGHT}", full_width=True,
+                         first=first)
     bwd_errs, k4_plain_ms, bwd = check_backward_kernels(
-        full, f"{WIDTH}x{HEIGHT}", full_width=True)
+        full, f"{WIDTH}x{HEIGHT}", full_width=True, first=first)
     errs.update(bwd_errs)
 
     # phase 2: the main path, with the launch counts read around it
@@ -811,14 +927,19 @@ def main(argv=None) -> int:
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = dict(renderer.frames())
+    with first_design_calls() as off_path:
+        frames = dict(renderer.frames())
     first_pass_s = time.perf_counter() - t0
     launches = {name: f.launches for name, f in render_kernels.items()}
     print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass); "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; first design's calls {off_path}", flush=True)
     for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the render path never launched {name}")
+        if n != len(pose_list):
+            raise AssertionError(f"{name}: {n} launches in "
+                                 f"{len(pose_list)} frames")
+    if any(off_path.values()):
+        raise AssertionError(f"the render path ran the first design's data "
+                             f"movement: {off_path}")
     for i, fr in frames.items():
         if fr.shape != (HEIGHT, WIDTH, 3) or fr.dtype != np.uint8:
             raise AssertionError(f"frame {i}: {fr.shape} {fr.dtype}")
@@ -868,58 +989,85 @@ def main(argv=None) -> int:
 
     k = full.keys
     rgb_table = full.table
+    att = full.expand_args[5]
+    _, owner = expand.slot_keys(*full.expand_args, **full.expand_kw)
+    fused_s, perm = k.fused, k.orig_slot
+    rows_k5, inv = bwd["rows"], bwd["inv"]
+    bwd_args = bwd["bwd_args"]
+    # per TPU kernel: its launches (wrapper call, kernel symbol) and its
+    # plain version (None: timed in phase 1b)
     timed = {
-        "expand_keys": (lambda: expand.expand_keys(*full.expand_args,
-                                                   **full.expand_kw),
-                        lambda: expand.expand_keys_plain(*full.expand_args,
-                                                         **full.expand_kw)),
+        "expand_keys": (
+            [(lambda: expand.slot_keys(*full.expand_args, **full.expand_kw),
+              "slot_keys_kernel"),
+             (lambda: expand.sorted_table(fused_s, perm, owner, att,
+                                          **full.table_kw),
+              "sorted_table_kernel")],
+            lambda: (expand.slot_keys_plain(*full.expand_args,
+                                            **full.expand_kw),
+                     expand.sorted_table_plain(fused_s, perm, owner, att,
+                                               **full.table_kw))),
         "bucket_histogram": (
-            lambda: histogram.bucket_histogram(full.tile_ids, full.num_tiles),
+            [(lambda: histogram.bucket_histogram(full.tile_ids,
+                                                 full.num_tiles),
+              "histogram_kernel")],
             lambda: histogram.bucket_histogram_plain(full.tile_ids,
                                                      full.num_tiles)),
         "blend_forward": (
-            lambda: blend.blend_forward(rgb_table, k.tile_start, k.tile_end,
-                                        rgb_only=True, **full.blend_kw),
+            [(lambda: blend.blend_forward(rgb_table, k.tile_start,
+                                          k.tile_end, rgb_only=True,
+                                          **full.blend_kw),
+              "blend_forward_kernel")],
             lambda: blend.blend_forward_plain(rgb_table, k.tile_start,
                                               k.tile_end, rgb_only=True,
                                               **full.blend_kw)),
+        "blend_backward": (
+            [(lambda: blend.blend_backward(*bwd_args, **full.blend_kw),
+              "blend_backward_kernel")], None),
+        "segment_reduce": (
+            [(lambda: sr.segment_reduce_sorted(rows_k5, inv, k.offsets,
+                                               k.counts),
+              "segment_reduce_kernel")],
+            lambda: sr.segment_reduce_sorted_plain(rows_k5, inv, k.offsets,
+                                                   k.counts)),
     }
-    bwd_args, d_orig = bwd["bwd_args"], bwd["d_orig"]
-    timed["blend_backward"] = (
-        lambda: blend.blend_backward(*bwd_args, **full.blend_kw), None)
-    timed["segment_reduce"] = (
-        lambda: sr.segment_reduce(d_orig, k.offsets, k.counts),
-        lambda: sr.segment_reduce_plain(d_orig, k.offsets, k.counts))
-    # "ms" is the kernel's own device time per launch; "plain_ms" and
-    # "library_ms" are device time per call (blend_backward's plain_ms:
-    # the wall time of its one call); a call's wall time (host included)
-    # is kept beside them in the record
-    symbol = {"expand_keys": "expand_kernel",
-              "bucket_histogram": "histogram_kernel",
-              "blend_forward": "blend_forward_kernel",
-              "blend_backward": "blend_backward_kernel",
-              "segment_reduce": "segment_reduce_kernel"}
-    ms = {n: kernel_ms(kern, symbol[n], reps=50)
-          for n, (kern, _) in timed.items()}
+    # "ms" is the kernel's own device time per launch, summed over its
+    # launches (K1: K1a + K1b); "plain_ms" and "library_ms" are device time
+    # per call (blend_backward's plain_ms: the wall time of its one call);
+    # a call's wall time (host included) is kept beside them in the record
+    ms = {n: sum(kernel_ms(fn, sym, reps=50) for fn, sym in parts)
+          for n, (parts, _) in timed.items()}
     # the blend wrappers also launch the tile-order kernel (heaviest tile
     # first, csrc/tile_order.cuh) before the blend: its own time a call
-    order_ms = {n: kernel_ms(timed[n][0], "tile_order_kernel", reps=50)
+    order_ms = {n: kernel_ms(timed[n][0][0][0], "tile_order_kernel", reps=50)
                 for n in ("blend_forward", "blend_backward")}
-    call_ms = {n: cuda_ms(kern, reps=50, warmup=5)
-               for n, (kern, _) in timed.items()}
-    plain_ms = {n: device_ms(p, reps=2 if n == "blend_forward" else 10)
+    call_ms = {n: sum(cuda_ms(fn, reps=50, warmup=5) for fn, _ in parts)
+               for n, (parts, _) in timed.items()}
+    # the plain blend and segment sum launch a few kernels a key position
+    plain_ms = {n: device_ms(p, reps=2 if n in ("blend_forward",
+                                                "segment_reduce") else 10)
                 for n, (_, p) in timed.items() if p is not None}
     plain_ms["blend_backward"] = k4_plain_ms  # its one call in phase 1b
     bincount_ms = device_ms(
         lambda: torch.bincount(full.tile_ids, minlength=full.num_tiles),
         reps=50)
     lengths = k.counts.long()
-    segment_reduce_lib_ms = device_ms(
-        lambda: torch.segment_reduce(d_orig.T.contiguous(), "sum",
-                                     lengths=lengths, axis=0, unsafe=True),
-        reps=50)
+
+    def segment_reduce_library():
+        # the library chain for K5's function: the regroup to pre-sort
+        # order (index_copy_), then torch.segment_reduce over the points'
+        # contiguous segments (lengths = counts, offsets their cumsum)
+        d_orig = torch.empty_like(rows_k5).index_copy_(1, perm, rows_k5)
+        return torch.segment_reduce(d_orig.T.contiguous(), "sum",
+                                    lengths=lengths, axis=0, unsafe=True)
+    segment_reduce_lib_ms = device_ms(segment_reduce_library, reps=50)
     library_ms = {"bucket_histogram": bincount_ms,
                   "segment_reduce": segment_reduce_lib_ms}
+    # the first design's stages around K1 and K5 (this design's are in
+    # the render and train stage tables)
+    design_ms = keys_step0.first_design_stages(first, full, rows_k5)
+    for name, v in design_ms.items():
+        print(f"  first design's stage {name}: {v}", flush=True)
 
     # phase 4: the training step, with the launch counts read around its
     # timed steps
@@ -937,11 +1085,13 @@ def main(argv=None) -> int:
         f"{k_} {v}" for k_, v in walked.items() if k_ != "tile_block_keys"),
         flush=True)
     px = HEIGHT * WIDTH
-    n_rows = d_orig.shape[0]
+    n_rows = rows_k5.shape[0]
     work = {
         # reads offsets, dkey, base, h (4 x 4 B) and 10 attr rows per point;
-        # writes the fused key and 16 table rows per key. Per key: a binary
-        # search (2 ops a step) and the cull (~45 flops)
+        # writes the fused key and 16 table rows per key (K1a's owners and
+        # K1b's reads of them and of perm are the design's, not the
+        # function's). Per key: a binary search (2 ops a step) and the cull
+        # (~45 flops)
         "expand_keys": (4 * 4 * n + 10 * 4 * n + 17 * 4 * total,
                         total * (2 * math.ceil(math.log2(n)) + 45)),
         # reads every sorted tile id, writes the counts; one add per id
@@ -958,10 +1108,11 @@ def main(argv=None) -> int:
         "blend_backward": (9 * 4 * full.live_keys + 8 * full.num_tiles
                            + 6 * 4 * px + 11 * 4 * full.live_keys
                            + 2 * 4 * px, 16 * pairs + 45 * included),
-        # reads every row lane once and the offsets and counts, writes one
-        # float a (row, point); one add per row lane
-        "segment_reduce": (4 * n_rows * total + 8 * n + 4 * n_rows * n,
-                           n_rows * total),
+        # reads every row lane and the inverse permutation once and the
+        # offsets and counts, writes one float a (row, point); one add per
+        # row lane
+        "segment_reduce": (4 * n_rows * total + 4 * total + 8 * n
+                           + 4 * n_rows * n, n_rows * total),
     }
     source = "taichi_3d_gaussian_splatting_tpu_torch/csrc/{}.cu"
     replaces = {
@@ -979,15 +1130,19 @@ def main(argv=None) -> int:
            "blend_forward": "blend", "blend_backward": "blend_backward",
            "segment_reduce": "segment_reduce"}
     rows = []
-    for name in kernels:
+    for name, counters in counters_of.items():
         nbytes, ops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_FLOPS * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source.format(src[name]),
-            "replaces": replaces[name], "launches": train["train_launches"][name],
-            "launches_per_step": train["train_launches_per_step"][name],
-            "launches_per_frame": launches.get(name, 0) / len(pose_list),
+            "replaces": replaces[name],
+            "launches": sum(train["train_launches"][c] for c in counters),
+            "launches_per_step": sum(train["train_launches_per_step"][c]
+                                     for c in counters),
+            "launches_per_frame": sum(launches.get(c, 0)
+                                      for c in counters) / len(pose_list),
+            "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1010,7 +1165,8 @@ def main(argv=None) -> int:
                                for n in launches},
         "bincount_ms": bincount_ms,
         "segment_reduce_library_ms": segment_reduce_lib_ms,
-        "kernel_call_wall_ms": call_ms,
+        "kernel_call_wall_ms": call_ms, "first_design_stage_ms": design_ms,
+        "render_first_design_calls": off_path,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
         **train,
@@ -1028,6 +1184,7 @@ def main(argv=None) -> int:
     print(json.dumps({k_: record[k_] for k_ in record if k_ != "kernels"}))
     print(json.dumps({"kernels": rows}))
     print(card)
+    first_dir.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

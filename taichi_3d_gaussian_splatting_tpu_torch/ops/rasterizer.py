@@ -4,12 +4,14 @@ image, and its backward.
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
 
   compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid; autograd)
-  -> build_keys (no gradient: frustum cull, tile bbox, expand_keys kernel,
-     one stable key sort, bucket_histogram kernel for the tile ranges)
+  -> build_keys (no gradient: frustum cull, tile bbox, the slot-keys
+     kernel, one stable key sort, the sorted-table kernel, the
+     bucket_histogram kernel for the tile ranges)
   -> blend_forward kernel -> _assemble (tiles -> image)
-  backward: blend_backward kernel -> per-key rows regrouped to pre-sort
-     key order -> segment_reduce kernel -> per-point raw-attribute
-     gradients -> torch autograd of compute_raw_attrs -> xyz, features.
+  backward: blend_backward kernel -> the segment_reduce kernel, which
+     reads the sorted per-key rows through the inverse key permutation ->
+     per-point raw-attribute gradients -> torch autograd of
+     compute_raw_attrs -> xyz, features.
 
 ``rasterize`` differentiates through ``_BlendCore`` (a
 ``torch.autograd.Function``) when xyz or features require grad, and runs
@@ -35,7 +37,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
     frustum_cull_mask,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (
-    segment_reduce,
+    segment_reduce_sorted,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 
@@ -254,10 +256,12 @@ def _blend_bwd_impl(raw: RawAttrs, keys: tiling.TileKeys, table, out_tiles,
         table, keys.tile_start, keys.tile_end, d_rgb_tiles.contiguous(),
         out_tiles[..., 0:3].contiguous(), tile=tile, tiles_x=tiles_x,
         tiles_y=tiles_y, extra_info=cfg.extra_info, imggrad=not cfg.slim)
-    # rows 0..11 (row 9 is zero) from sorted to pre-sort key order, where
-    # each point's keys are contiguous, then summed per point
-    d_orig = tiling.regroup_rows_by_slot(d_table[0:12], keys.orig_slot)
-    per_point = segment_reduce(d_orig, keys.offsets, keys.counts)
+    # rows 0..11 (row 9 is zero) summed over each point's keys, which are
+    # contiguous in pre-sort slot order: read in sorted order through the
+    # inverse of the sort's permutation
+    inv = tiling.inverse_permutation(keys.orig_slot)
+    per_point = segment_reduce_sorted(d_table[0:12], inv, keys.offsets,
+                                      keys.counts)
     # split d_log(rescale * opacity) into the two exact cotangents
     d_logro = per_point[5]
     n = per_point.shape[1]
@@ -284,7 +288,7 @@ def _blend(table, keys: tiling.TileKeys, tile, grid_hw,
 class _BlendCore(torch.autograd.Function):
     """out_tiles = blend_forward(table); the table is a function of the
     raw fields (uv, conic, opacity, color) that arrives without a graph,
-    and the backward (K4 -> regroup -> K5) is its adjoint, returned as the
+    and the backward (K4 -> K5) is its adjoint, returned as the
     raw fields' cotangents."""
 
     @staticmethod

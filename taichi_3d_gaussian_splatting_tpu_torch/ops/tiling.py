@@ -11,12 +11,16 @@ fixed-point depth key; the sentinel ``((num_tiles + 1) << dbits) - 1``;
 the stable sort order (ties keep pre-sort slot order, and point p's j-th
 key sits at slot offsets[p] + j); and the per-tile [start, end) ranges.
 
-Stages: ``expand_keys`` (a CUDA kernel) writes the keys and the table in
-pre-sort order; one stable ``torch.sort`` orders the keys and the table
-columns follow by the returned permutation; ``bucket_histogram`` (a CUDA
-kernel) counts each tile's keys, and their exclusive cumsum gives the
-ranges. The backward's ``regroup_rows_by_slot`` scatters per-key rows back
-to pre-sort order by the same permutation.
+Stages: ``expand.slot_keys`` (K1a, a CUDA kernel) writes the fused key and
+the owning point of every slot; one stable ``torch.sort`` orders the keys;
+``expand.sorted_table`` (K1b) writes the blend table in sorted order;
+``bucket_histogram`` (K2) counts each tile's keys, and their exclusive
+cumsum gives the ranges. The TPU design wrote the table before the sort and
+let the sort carry it; here nothing gathers the table. The backward reads
+its sorted per-key rows through ``inverse_permutation`` of the sort's
+permutation (``segment_reduce.segment_reduce_sorted``);
+``regroup_rows_by_slot``, the JAX package's regroup to pre-sort order, is
+kept for the tests.
 """
 from __future__ import annotations
 
@@ -166,15 +170,15 @@ def build_tile_keys_and_table(
     if not has_attrs:
         attr_cols = torch.zeros((10, uv.shape[0]), dtype=torch.float32,
                                 device=uv.device)
-    att = torch.where(torch.isfinite(attr_cols), attr_cols,
-                      torch.zeros_like(attr_cols)).contiguous()
-    fused, table = expand_mod.expand_keys(
+    att = attr_cols.contiguous()  # non-finite entries: the kernels read 0
+    fused, owner = expand_mod.slot_keys(
         r.offsets, r.counts, r.dkey, r.base, r.h, att, total=r.total,
         tiles_u=tiles_u, tile_w=tile_w, tile_h=tile_h, dbits=dbits,
         sentinel=sentinel, exact_cull=exact_tile_cull and has_attrs)
-
     fused_s, perm = torch.sort(fused, stable=True)
-    table_s = table.index_select(1, perm)
+    table_s = expand_mod.sorted_table(
+        fused_s, perm, owner, att, tiles_u=tiles_u, tile_w=tile_w,
+        tile_h=tile_h, dbits=dbits, sentinel=sentinel)
     hist = histogram_mod.bucket_histogram(fused_s >> dbits, num_tiles)
     bounds = torch.zeros((num_tiles + 1,), dtype=torch.int32, device=uv.device)
     bounds[1:] = torch.cumsum(hist, 0)
@@ -186,12 +190,23 @@ def build_tile_keys_and_table(
     return keys, table_s
 
 
+def inverse_permutation(orig_slot: torch.Tensor) -> torch.Tensor:
+    """(total,) int32 sorted position of each pre-sort slot: inv[orig_slot[i]]
+    = i (the JAX package leaves this scatter to XLA)."""
+    total = orig_slot.shape[0]
+    inv = torch.empty((total,), dtype=torch.int32, device=orig_slot.device)
+    inv[orig_slot] = torch.arange(total, dtype=torch.int32,
+                                  device=orig_slot.device)
+    return inv
+
+
 def regroup_rows_by_slot(rows: torch.Tensor,
                          orig_slot: torch.Tensor) -> torch.Tensor:
     """(R, total) rows in sorted key order -> (R, total) in original
     (pre-sort) key order: out[:, orig_slot[i]] = rows[:, i]. Every slot
     appears once in ``orig_slot`` (the sort's permutation), so a scatter
-    by it writes every output lane."""
+    by it writes every output lane. Equal to ``rows[:, inv]`` with ``inv =
+    inverse_permutation(orig_slot)``; the main path never builds it."""
     return torch.empty_like(rows).index_copy_(1, orig_slot, rows)
 
 

@@ -4,8 +4,9 @@ Port of ``make_train_step`` of ``taichi_3d_gaussian_splatting_tpu/training/
 trainer.py`` (without pose refinement and without ``scan_steps``). The step
 runs forward (``rasterize_fwd_ctx``: attributes, tile keys, the blend
 kernel), the L1 + SSIM loss, the backward (``rasterize_bwd``: the
-blend_backward kernel, the regroup by original slot, the segment_reduce
-kernel, autograd of the attributes), the grad factors, one Adam on the
+blend_backward kernel, the segment_reduce kernel reading its sorted rows
+through the inverse key permutation, autograd of the attributes), the
+grad factors, one Adam on the
 features and one on the positions (staircase-decayed learning rate), and
 ``controller.accumulate``. It returns a new state and leaves its input as
 it was.

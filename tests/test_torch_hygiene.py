@@ -203,8 +203,9 @@ def test_wrappers_check_shapes():
         sr.segment_reduce(torch.zeros(12, 8), _i32(3), _i32(4))
 
 
-COUNTERS = (histogram.bucket_histogram, expand.expand_keys,
-            blend.blend_forward, blend.blend_backward, sr.segment_reduce)
+COUNTERS = (histogram.bucket_histogram, expand.slot_keys,
+            expand.sorted_table, blend.blend_forward, blend.blend_backward,
+            sr.segment_reduce, sr.segment_reduce_sorted)
 
 
 def test_wrappers_on_cpu_never_launch():

@@ -7,16 +7,23 @@ so it runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Tolerances: expand_keys and bucket_histogram are integer/copy kernels and
-must match bit for bit; the blend kernel keeps a sequential transmittance
+Tolerances: the key expansion (slot_keys, sorted_table), bucket_histogram
+and segment_reduce must match bit for bit (integer and copy kernels, and
+segment sums added in slot order like their plain versions); the sorted
+table also equals the pre-sort table gathered by the sort's permutation,
+and the segment sum through the inverse permutation equals the first
+design's regroup + kernel (``kernel_variants/``); the blend kernel keeps a sequential transmittance
 where the plain version takes a parallel cumprod, so rgb/alpha agree to
 1e-4, depth to 5e-4 (the JAX package's own image gates) and, at this
 size, the count exactly. blend_backward sums each key's pixel terms in
 another order than the plain version's torch.sum: rows 0..8 and 10 agree
 to 5e-4 + 1e-3 |plain| (the JAX package's gradient gate), the count and
-the |grad_uv| image (1e-4) as the forward's; segment_reduce adds in lane
-order like index_add_, to 1e-5 (1 + |plain|).
+the |grad_uv| image (1e-4) as the forward's.
 """
+import importlib.util
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -54,7 +61,7 @@ def _frame(dev, tile=(32, 32), n=200, seed=7, scale_shift=0.0):
                                                 to(invalid))
 
 
-def _expand_inputs(cfg, cam, raw, radius, invalid):
+def _expand_inputs(cfg, cam, raw, radius, invalid, nonfinite=False):
     tile = R._cfg_tile(cfg)
     visible = R.frustum_cull_mask(raw.uv, raw.depth, invalid, cam.width,
                                   cam.height, cfg.near_plane, cfg.far_plane,
@@ -66,6 +73,10 @@ def _expand_inputs(cfg, cam, raw, radius, invalid):
     dbits = tiling._depth_bits(num_tiles)
     att = R.attr_columns(raw)
     att = torch.where(torch.isfinite(att), att, torch.zeros_like(att))
+    if nonfinite:  # the kernels and their plain versions read them as 0
+        att[2, ::7] = float("nan")
+        att[6, 1::5] = float("inf")
+        att[9, 3::11] = -float("inf")
     kw = dict(total=r.total, tiles_u=tiles_u, tile_w=tile[0], tile_h=tile[1],
               dbits=dbits, sentinel=((num_tiles + 1) << dbits) - 1)
     return (r.offsets, r.counts, r.dkey, r.base, r.h, att.contiguous()), kw
@@ -88,13 +99,44 @@ def test_expand_matches_plain(dev, exact_cull):
     cfg, cam, raw, radius, invalid, _ = _frame(dev)
     args, kw = _expand_inputs(cfg, cam, raw, radius, invalid)
     assert kw["total"] > 0
-    before = expand.expand_keys.launches
+    before = (expand.slot_keys.launches, expand.sorted_table.launches)
+    fused, owner = expand.slot_keys(*args, **kw, exact_cull=exact_cull)
+    fused_p, owner_p = expand.slot_keys_plain(*args, **kw,
+                                              exact_cull=exact_cull)
+    torch.testing.assert_close(fused, fused_p, rtol=0, atol=0)
+    torch.testing.assert_close(owner, owner_p, rtol=0, atol=0)
     fused, table = expand.expand_keys(*args, **kw, exact_cull=exact_cull)
-    assert expand.expand_keys.launches == before + 1
+    assert (expand.slot_keys.launches, expand.sorted_table.launches) == (
+        before[0] + 2, before[1] + 1)
     fused_p, table_p = expand.expand_keys_plain(*args, **kw,
                                                 exact_cull=exact_cull)
     torch.testing.assert_close(fused, fused_p, rtol=0, atol=0)
     torch.testing.assert_close(table, table_p, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16)])
+@pytest.mark.parametrize("exact_cull", [False, True])
+@pytest.mark.parametrize("nonfinite", [False, True])
+def test_sorted_table_matches_plain(dev, tile, exact_cull, nonfinite):
+    """K1b after the sort: equal to its plain version and to the pre-sort
+    table gathered by the sort's permutation."""
+    cfg, cam, raw, radius, invalid, _ = _frame(dev, tile, n=2000,
+                                               scale_shift=1.0)
+    args, kw = _expand_inputs(cfg, cam, raw, radius, invalid, nonfinite)
+    fused, owner = expand.slot_keys(*args, **kw, exact_cull=exact_cull)
+    fused_s, perm = torch.sort(fused, stable=True)
+    tkw = {k: kw[k] for k in ("tiles_u", "tile_w", "tile_h", "dbits",
+                              "sentinel")}
+    before = expand.sorted_table.launches
+    table = expand.sorted_table(fused_s, perm, owner, args[5], **tkw)
+    assert expand.sorted_table.launches == before + 1
+    want = expand.sorted_table_plain(fused_s, perm, owner, args[5], **tkw)
+    torch.testing.assert_close(table, want, rtol=0, atol=0)
+    gathered = expand.expand_keys_plain(
+        *args, **kw, exact_cull=exact_cull)[1].index_select(1, perm)
+    torch.testing.assert_close(table, gathered, rtol=0, atol=0)
+    if exact_cull:
+        assert bool((fused_s == kw["sentinel"]).any()), "nothing culled"
 
 
 # a warp takes an 8x4 pixel block where the shape allows, so its cull
@@ -131,12 +173,12 @@ def test_blend_matches_plain(dev, tile, rgb_only, dense):
 
 def test_rasterize_launches_every_kernel(dev):
     cfg, cam, _, _, _, (xyz, feats, invalid) = _frame(dev)
-    counters = (expand.expand_keys, histogram.bucket_histogram,
-                blend.blend_forward)
+    counters = (expand.slot_keys, expand.sorted_table,
+                histogram.bucket_histogram, blend.blend_forward)
     before = [f.launches for f in counters]
     out = R.rasterize(xyz, feats, invalid, torch.from_numpy(Q_ID).to(dev),
                       torch.from_numpy(T_ID).to(dev), cam, cfg)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1] * 4
     assert out.rgb.shape == (64, 64, 3) and out.rgb.is_cuda
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
 
@@ -172,22 +214,71 @@ def test_blend_backward_matches_plain(dev, tile, dense):
     assert float(want[11].sum()) > 0
 
 
-def test_segment_reduce_matches_plain(dev):
-    rng = np.random.default_rng(3)
-    counts = rng.integers(0, 6, 5000).astype(np.int32)
+def _segments(dev, seed, n=5000, long_every=0):
+    """Rows, offsets and counts of up to 5 slots a point (every 7th point
+    none); with long_every, every long_every-th point takes 9-200 slots
+    (the kernel's warp path)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 6, n).astype(np.int32)
     counts[::7] = 0
+    if long_every:
+        counts[3::long_every] = rng.integers(9, 201, len(counts[3::long_every]))
     offsets = (np.cumsum(counts) - counts).astype(np.int32)
     cols = int(counts.sum()) + 37  # trailing lanes of no point
     rows = rng.normal(size=(12, cols)).astype(np.float32)
     rows[:, counts.sum():] = 0.0
-    args = [torch.from_numpy(a).to(dev) for a in (rows, offsets, counts)]
+    return [torch.from_numpy(a).to(dev) for a in (rows, offsets, counts)]
+
+
+def test_segment_reduce_matches_plain(dev):
+    args = _segments(dev, 3)
     before = sr.segment_reduce.launches
     got = sr.segment_reduce(*args)
     assert sr.segment_reduce.launches == before + 1
     want = sr.segment_reduce_plain(*args)
     torch.cuda.synchronize()
     assert got.shape == (12, 5000)
-    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def first_design(dev):
+    """The first design's K1 and K5 (before their redesign), built from
+    kernel_variants/."""
+    path = Path(__file__).resolve().parent.parent / "kernel_variants"
+    spec = importlib.util.spec_from_file_location(
+        "keys_step0", path / "keys_step0.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.build_v1(Path(tmp))
+        yield mod.FirstDesign(Path(tmp))
+
+
+@pytest.mark.parametrize("num_rows", [12, 2, 16])
+@pytest.mark.parametrize("long_every", [0, 50])
+def test_segment_reduce_sorted_matches_plain(dev, first_design, num_rows,
+                                             long_every):
+    """K5 through a random inverse permutation: equal to its plain version
+    (the regroup, then the slot-order sum) and to the first design's
+    regroup + kernel, bit for bit."""
+    rows, offsets, counts = _segments(dev, 4, long_every=long_every)
+    rows = torch.cat([rows] * 2)[:num_rows].contiguous()
+    rng = np.random.default_rng(9)
+    orig_slot = torch.from_numpy(rng.permutation(rows.shape[1])).to(dev)
+    inv = tiling.inverse_permutation(orig_slot)
+    sorted_rows = torch.empty_like(rows)
+    sorted_rows[:, inv.long()] = rows  # sorted lane inv[k] holds slot k
+    before = sr.segment_reduce_sorted.launches
+    got = sr.segment_reduce_sorted(sorted_rows, inv, offsets, counts)
+    assert sr.segment_reduce_sorted.launches == before + 1
+    want = sr.segment_reduce_sorted_plain(sorted_rows, inv, offsets, counts)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, sr.segment_reduce(rows, offsets, counts),
+                               rtol=0, atol=0)
+    first = first_design.segment_reduce(
+        tiling.regroup_rows_by_slot(sorted_rows, orig_slot), offsets, counts)
+    torch.testing.assert_close(got, first, rtol=0, atol=0)
 
 
 def test_train_step_launches_every_kernel(dev):
@@ -198,14 +289,16 @@ def test_train_step_launches_every_kernel(dev):
     step = trainer.make_train_step(config, 64, 64, device=dev)
     gt = torch.from_numpy((np.random.default_rng(1).random((64, 64, 3))
                            * 255).astype(np.uint8)).to(dev)
-    counters = (expand.expand_keys, histogram.bucket_histogram,
-                blend.blend_forward, blend.blend_backward,
+    counters = (expand.slot_keys, expand.sorted_table,
+                histogram.bucket_histogram, blend.blend_forward,
+                blend.blend_backward, sr.segment_reduce_sorted,
                 sr.segment_reduce)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1] * 5
+    assert [f.launches - b
+            for f, b in zip(counters, before)] == [1] * 6 + [0]
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0

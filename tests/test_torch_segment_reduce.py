@@ -1,10 +1,13 @@
-"""The port's segment reduction (K5's plain version) and the regroup by
+"""The port's segment reduction (K5's plain versions) and the regroup by
 original slot against the JAX package's ``segment_reduce`` (Pallas in
 interpret mode) and ``regroup_rows_by_slot``.
 
 The segment sums agree to rtol 1e-6, atol 1e-6 (JAX adds through a bf16x3
 membership matmul, exact but for the f32 sum order); the regroup is a
-permutation and agrees exactly.
+permutation and agrees exactly. ``segment_reduce_sorted`` reads rows in
+sorted order through the inverse permutation: it equals JAX's regroup
+followed by JAX's segment sum, and with the identity the port's own
+``segment_reduce`` bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from taichi_3d_gaussian_splatting_tpu.ops.segment_reduce import (  # noqa: E402
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling as tt  # noqa: E402
 from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (  # noqa: E402
     segment_reduce,
+    segment_reduce_sorted,
 )
 
 
@@ -66,3 +70,32 @@ def test_regroup_rows_by_slot_matches_jax():
     got = tt.regroup_rows_by_slot(torch.from_numpy(rows),
                                   torch.from_numpy(orig_slot))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n, seed, identity", [(300, 2, False),
+                                               (1500, 3, False),
+                                               (300, 4, True)])
+def test_segment_reduce_sorted_matches_jax_regroup(n, seed, identity):
+    rows, offsets, counts = _segments(n, seed, max_count=12)
+    total = rows.shape[1]
+    rng = np.random.default_rng(seed + 10)
+    orig_slot = np.arange(total) if identity else rng.permutation(total)
+    sorted_rows = np.empty_like(rows)
+    sorted_rows[:, np.arange(total)] = rows[:, orig_slot]  # lane i: slot orig_slot[i]
+    want = np.asarray(j_segment_reduce(
+        jt.regroup_rows_by_slot(jnp.asarray(sorted_rows),
+                                jnp.asarray(orig_slot.astype(np.int32)),
+                                total),
+        jnp.asarray(offsets), jnp.asarray(counts), interpret=True))[:, :n]
+    inv = tt.inverse_permutation(torch.from_numpy(orig_slot))
+    assert inv.dtype == torch.int32
+    np.testing.assert_array_equal(inv.numpy()[orig_slot], np.arange(total))
+    t_offsets, t_counts = torch.from_numpy(offsets), torch.from_numpy(counts)
+    got = segment_reduce_sorted(torch.from_numpy(sorted_rows), inv, t_offsets,
+                                t_counts)
+    assert got.shape == (12, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # in slot order from 0, as segment_reduce adds the pre-sort rows
+    np.testing.assert_array_equal(
+        got.numpy(),
+        segment_reduce(torch.from_numpy(rows), t_offsets, t_counts).numpy())

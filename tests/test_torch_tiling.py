@@ -130,3 +130,58 @@ def test_expand_keys_decodes_u_major():
     tids = [1 + j // 2 + (j % 2) * 4 for j in range(6)]
     assert fused.tolist() == [(t << 10) + 5 for t in tids]
     assert table[10].tolist() == [0.0] * 6 and table[11:].abs().sum() == 0
+
+
+def _expand_inputs(tile, exact_tile_cull):
+    """The expansion's inputs from the port's own tiling stage on the
+    JAX-computed raw attributes of the seeded scene, with some point
+    columns made non-finite (read as 0)."""
+    _, _, _, _, t_raw, t_radius, t_invalid = _frame(tile)
+    cfg = tr.RasterizerConfig(tile_size=tile[0], tile_h=tile[1])
+    visible = tr.frustum_cull_mask(t_raw.uv, t_raw.depth, t_invalid, 64, 64,
+                                   cfg.near_plane, cfg.far_plane, tile)
+    r = ttl.point_key_ranges(t_raw.uv, t_raw.depth, t_radius, visible, 64,
+                             64, tile, cfg.depth_to_sort_key_scale)
+    tiles_u = 64 // tile[0]
+    num_tiles = tiles_u * (64 // tile[1])
+    dbits = ttl._depth_bits(num_tiles)
+    att = tr.attr_columns(t_raw)
+    att[2, ::7] = float("nan")
+    att[6, 1::5] = float("inf")
+    att[9, 3::11] = -float("inf")
+    kw = dict(total=r.total, tiles_u=tiles_u, tile_w=tile[0], tile_h=tile[1],
+              dbits=dbits, sentinel=((num_tiles + 1) << dbits) - 1,
+              exact_cull=exact_tile_cull)
+    return r, att, kw
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16)])
+@pytest.mark.parametrize("exact_tile_cull", [False, True])
+def test_sorted_table_equals_gathered_pre_sort_table(tile, exact_tile_cull):
+    """Keys first, table after the sort (the port's two passes) gives the
+    pre-sort table of the JAX contract gathered by the sort's permutation,
+    bit for bit; the owners are repeat_interleave's."""
+    r, att, kw = _expand_inputs(tile, exact_tile_cull)
+    args = (r.offsets, r.counts, r.dkey, r.base, r.h, att)
+    fused, owner = expand.slot_keys(*args, **kw)
+    fused_p, table_p = expand.expand_keys_plain(*args, **kw)
+    np.testing.assert_array_equal(fused.numpy(), fused_p.numpy())
+    want_owner = np.repeat(np.arange(len(r.counts)), r.counts.numpy())
+    assert owner.dtype == torch.int32
+    np.testing.assert_array_equal(owner.numpy(), want_owner)
+    fused_s, perm = torch.sort(fused, stable=True)
+    tkw = {k: kw[k] for k in ("tiles_u", "tile_w", "tile_h", "dbits",
+                              "sentinel")}
+    table = expand.sorted_table(fused_s, perm, owner, att, **tkw)
+    np.testing.assert_array_equal(table.numpy(),
+                                  table_p.index_select(1, perm).numpy())
+    # the non-finite columns read as 0, and the JAX-contract pre-sort table
+    finite = torch.nan_to_num(att, nan=0.0, posinf=0.0, neginf=0.0)
+    np.testing.assert_array_equal(
+        table.numpy(),
+        expand.sorted_table(fused_s, perm, owner, finite, **tkw).numpy())
+    assert np.isfinite(table.numpy()).all()
+    _, pre = expand.expand_keys(*args, **kw)
+    np.testing.assert_array_equal(pre.numpy(), table_p.numpy())
+    if exact_tile_cull:
+        assert bool((fused_s == kw["sentinel"]).any()), "nothing culled"
