@@ -12,7 +12,9 @@ yardstick of their redesign), then:
    same inputs: a small frame (64x64, 200 points) and the full-width frame
    (428,687 points, 960x544, 32x32 tiles). The key expansion's two passes
    (slot_keys: fused keys and owners; sorted_table: the table after the
-   sort) and bucket_histogram must match bit for bit, and the fused keys,
+   sort), tile_ranges (the tile ranges of the sorted keys) and
+   bucket_histogram must match bit for bit, tile_ranges also against
+   torch.searchsorted, and the fused keys,
    the sort's permutation and the sorted table must equal the first
    design's keys and its pre-sort table gathered by the permutation;
    blend_forward within 1e-4 (rgb, alpha) and 5e-4 (depth), with the count
@@ -23,13 +25,16 @@ yardstick of their redesign), then:
    GaussianPointRenderer (the user's entry point; the scene goes through a
    .ply file), with every kernel's launch count set to 0 before and read
    after, and the first design's data movement (the table gather, the
-   regroup) counted and held at 0; checks the frames, and one full-output
-   frame against the plain blend;
+   regroup, the histogram + cumsum of the tile ranges) counted and held at
+   0; checks the frames, and one full-output frame against the plain
+   blend;
 3. times the render with CUDA events after a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
-   its plain version's, its library call's (torch.bincount for K2; for K5
-   the chain index_copy_ + torch.segment_reduce) and the kernel's bound on
-   an H100 SXM; times the first design's stages around K1 and K5
+   its plain version's, its library call's (torch.searchsorted for K2's
+   tile_ranges; for K5 the chain index_copy_ + torch.segment_reduce) and
+   the kernel's bound on an H100 SXM. A device time is read only from a
+   profiler window that shows the call's own kernels (``profiled``: three
+   windows without them fail the run); times the first design's stages around K1 and K5
    (``kernel_variants/keys_step0.py``: its K1, the sort, the table gather,
    the regroup, its K5); counts the (pixel, key) pairs the blend kernels
    walk per pixel, per warp and per block,
@@ -49,7 +54,21 @@ yardstick of their redesign), then:
    with seeded noise on its DC colours. Checks every loss and gradient
    finite, the loss falling, every kernel launched once a timed step, and
    no table gather or regroup; times the step, its stages and the
-   device's busy share.
+   device's busy share;
+5. trains through the loop, ``GaussianPointCloudTrainer.train()`` (the
+   entry point of ``apps/train.py``), built by ``config.from_dict`` and a
+   subclass that serves in-memory views and writes the scene as .parquet
+   (.ply where pandas or its parquet engine is missing): the phase-4 scene
+   in a pool of 1.25x its points (535,858 slots), 6 train and 2 val views
+   at 960x544 rendered from a second seeded scene and quantized to 8 bits
+   like a PNG decode; 40 iterations, downsample factor 2 for the first 20,
+   SH bands 0-3, warm-up 10, densify every 10 with thresholds that fill
+   free slots, an alpha reset at 25, a validation at 20. Counts every
+   kernel's launches over the run (and no plain version), times the
+   whole train() window an iteration, the plain iterations at each size against phase 4's step, a densify round,
+   a validation frame and the checkpoint save, prints num_valid around
+   each round, and resumes a fresh trainer from ``checkpoint_latest``,
+   holding its state equal to the state that was saved.
 
 The scene is a seeded copy of bench.py's surround scene (random weights).
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -306,11 +325,20 @@ def walked_pairs(frame: Frame) -> dict:
     return out
 
 
+def _guard():
+    """A spin kernel, a sync and a short wait: the profiler loses device
+    events at the edges of a window now and then, and these guard the
+    timed calls at both ends (the spin's row is dropped)."""
+    torch.cuda._sleep(100_000)  # ~0.05 ms of the device
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
 def profile_device(fn, reps: int):
     """torch.profiler over reps calls of fn, after one warm call: (wall ms
-    of the window, [(name, device us)]). Only device events (kernels,
-    copies, sets) are kept: an aten op's own row repeats the device time
-    of the kernels it launched."""
+    of the calls, [(name, device us, count)]). Only device events
+    (kernels, copies, sets) are kept: an aten op's own row repeats the
+    device time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,40 +346,111 @@ def profile_device(fn, reps: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _guard()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _guard()
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and SPIN not in e.key]
     return wall_ms, rows
 
 
-def device_ms(fn, reps: int) -> float:
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
+LOSS = 0.1  # the share of a name's events a window may lose
+# windows taken, windows taken again, device events the kept windows lost
+WINDOWS = {"taken": 0, "retaken": 0, "events_lost": 0}
+
+
+def per_call(rows, reps: int):
+    """A window's rows as [(name, device us a call, launches a call)], or
+    None if the profiler lost more than LOSS of some name's events. A
+    name's launches a call is its count over reps, rounded; its time a call
+    is the mean of the events the window kept times that. A name with
+    fewer events than half the calls is not launched by every call and
+    counts as it stands."""
+    out = []
+    for name, us, n in rows:
+        k = round(n / reps)
+        if k == 0:
+            out.append((name, us / reps, n / reps))
+        elif (1 - LOSS) * k * reps <= n <= k * reps:
+            out.append((name, us / n * k, k))
+        else:
+            return None
+    return out
+
+
+def profiled(fn, reps: int, expect: tuple):
+    """profile_device over reps calls of fn: (wall ms, per_call rows) of a
+    window in which each string of expect is part of the name of an event
+    every call launches. The profiler now and then loses a few of a call's
+    events: a window that lost at most LOSS of each name's is read as
+    ``per_call`` says, one that lost more is taken again, and a third such
+    window fails the run."""
+    for attempt in range(3):
+        WINDOWS["taken"] += 1
+        WINDOWS["retaken"] += attempt > 0
+        wall_ms, rows = profile_device(fn, reps)
+        calls = per_call(rows, reps)
+        if calls is not None and all(
+                sum(k for name, _, k in calls if e in name) >= 1
+                for e in expect):
+            WINDOWS["events_lost"] += sum(
+                round(n / reps) * reps - n for _, _, n in rows
+                if n >= reps / 2)
+            return wall_ms, calls
+    held = sorted({f"{name[:70]} x{n}" for name, _, n in rows})
+    raise AssertionError(f"three profiler windows of {reps} calls lacked some "
+                         f"of {expect} or lost over {LOSS:.0%} of a name's "
+                         f"events; the last held {held}")
+
+
+# parts of the names of device events that a timed call must show: a
+# plain-torch elementwise op's kernel, and torch.sort's
+EW = ("elementwise_kernel",)
+SORT = ("RadixSort",)
+
+
+def device_ms(fn, reps: int, expect: tuple) -> float:
     """Device ms of one fn() call: the kernels, copies and sets it runs,
-    without the host's time between them."""
-    _, rows = profile_device(fn, reps)
-    return sum(us for _, us, _ in rows) / 1e3 / reps
+    without the host's time between them. ``expect``: parts of the names
+    of device events the call must show (see ``profiled``)."""
+    _, calls = profiled(fn, reps, expect)
+    return sum(us for _, us, _ in calls) / 1e3
 
 
 def kernel_ms(fn, symbol: str, reps: int) -> float:
     """Device ms of one launch of the CUDA kernel ``symbol`` that fn()
-    launches: its events' device time over their count, in a profiler
-    window of reps calls."""
-    _, rows = profile_device(fn, reps)
-    mine = [(us, n) for name, us, n in rows if name.startswith(symbol + "(")]
-    if not mine:
-        raise AssertionError(f"the profiler saw no {symbol} launch")
-    return sum(us for us, _ in mine) / sum(n for _, n in mine) / 1e3
+    launches: its device time a call over its launches a call, in a
+    profiler window of reps calls."""
+    _, calls = profiled(fn, reps, (symbol + "(",))
+    mine = [(us, k) for name, us, k in calls if symbol + "(" in name]
+    return sum(us for us, _ in mine) / sum(k for _, k in mine) / 1e3
 
 
-def both_ms(fn, reps: int) -> dict:
+def both_ms(fn, reps: int, expect: tuple) -> dict:
     """A call's wall ms (CUDA events over back-to-back calls: the larger of
     the host's and the device's time) beside its device ms."""
-    return {"wall_ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)}
+    return {"wall_ms": cuda_ms(fn, reps),
+            "device_ms": device_ms(fn, reps, expect)}
+
+
+def old_tile_ranges(fused_s, dbits: int, num_tiles: int) -> torch.Tensor:
+    """The tile ranges as the main path computed them before tile_ranges:
+    a zero fill, bucket_histogram of the shifted keys, a second zero fill,
+    the cumsum and a slice copy (the first design of ops/tiling.py)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import histogram
+
+    hist = histogram.bucket_histogram(fused_s >> dbits, num_tiles)
+    bounds = torch.zeros((num_tiles + 1,), dtype=torch.int32,
+                         device=fused_s.device)
+    bounds[1:] = torch.cumsum(hist, 0)
+    return bounds
 
 
 def stage_ms(renderer, q, t) -> dict:
@@ -367,20 +466,21 @@ def stage_ms(renderer, q, t) -> dict:
     reps = 20
     out = {}
     out["attributes (projection, EWA, SH)"] = both_ms(
-        lambda: R.compute_raw_attrs(s.xyz, s.features, q, t, cam), reps)
+        lambda: R.compute_raw_attrs(s.xyz, s.features, q, t, cam), reps, EW)
     raw, radius = R.compute_raw_attrs(s.xyz, s.features, q, t, cam)
     cull = lambda: R.frustum_cull_mask(  # noqa: E731
         raw.uv, raw.depth, s.invalid, cam.width, cam.height, cfg.near_plane,
         cfg.far_plane, tile)
-    out["frustum cull"] = both_ms(cull, reps)
+    out["frustum cull"] = both_ms(cull, reps, EW)
     visible = cull()
     ranges = lambda: tiling.point_key_ranges(  # noqa: E731
         raw.uv, raw.depth, radius, visible, cam.width, cam.height, tile,
         cfg.depth_to_sort_key_scale)
-    out["tile bbox, counts, offsets (+ host sync)"] = both_ms(ranges, reps)
+    out["tile bbox, counts, offsets (+ host sync)"] = both_ms(
+        ranges, reps, EW + ("Memcpy DtoH",))
     r = ranges()
     cols = lambda: R.attr_columns(raw)  # noqa: E731
-    out["attribute columns"] = both_ms(cols, reps)
+    out["attribute columns"] = both_ms(cols, reps, EW)
     att = cols()
     tiles_u = cam.width // tile[0]
     num_tiles = tiles_u * (cam.height // tile[1])
@@ -390,38 +490,43 @@ def stage_ms(renderer, q, t) -> dict:
     k1a = lambda: expand.slot_keys(  # noqa: E731
         r.offsets, r.counts, r.dkey, r.base, r.h, att, total=r.total,
         exact_cull=True, **tkw)
-    out["slot keys (K1a)"] = both_ms(k1a, reps)
+    out["slot keys (K1a)"] = both_ms(k1a, reps, ("slot_keys_kernel(",))
     fused, owner = k1a()
     out["stable key sort"] = both_ms(lambda: torch.sort(fused, stable=True),
-                                     reps)
+                                     reps, SORT)
     fused_s, perm = torch.sort(fused, stable=True)
     k1b = lambda: expand.sorted_table(fused_s, perm, owner, att, **tkw)  # noqa: E731
-    out["sorted table (K1b)"] = both_ms(k1b, reps)
+    out["sorted table (K1b)"] = both_ms(k1b, reps,
+                                        ("sorted_table_kernel(",))
     table_s = k1b()
 
-    def ranges_k2():
-        hist = histogram.bucket_histogram(fused_s >> dbits, num_tiles)
-        return torch.cumsum(hist, 0)
-    out["bucket_histogram (K2) + cumsum"] = both_ms(ranges_k2, reps)
+    out["bucket_histogram (K2) + cumsum (the old chain)"] = both_ms(
+        lambda: old_tile_ranges(fused_s, dbits, num_tiles), reps,
+        ("histogram_kernel(",))
+    out["tile_ranges (K2)"] = both_ms(
+        lambda: histogram.tile_ranges(fused_s, dbits, num_tiles), reps,
+        ("tile_ranges_kernel(",))
     keys, _, _ = R.build_keys(raw, radius, s.invalid, cam, cfg)
     bl = lambda: blend.blend_forward(  # noqa: E731
         table_s, keys.tile_start, keys.tile_end, tile=tile,
         tiles_x=tiles_u, tiles_y=cam.height // tile[1], rgb_only=True)
-    out["blend_forward (K3)"] = both_ms(bl, reps)
+    out["blend_forward (K3)"] = both_ms(bl, reps, ("blend_forward_kernel(",))
     tiles = bl()
     out["assemble, clamp, uint8, copy to host"] = both_ms(
         lambda: torch.round(torch.clamp(R._assemble(tiles, cam, cfg).rgb,
                                         0.0, 1.0) * 255).to(torch.uint8).cpu(),
-        reps)
+        reps, EW + ("Memcpy DtoH",))
     return out
 
 
 @contextlib.contextmanager
 def first_design_calls():
-    """Counts, while open, what the first design ran around K1 and K5 and
-    this one must not: a (16, total) table's index_select along its keys
-    (the gather after the sort), ``tiling.regroup_rows_by_slot`` and
-    segment_reduce on pre-sort rows."""
+    """Counts, while open, what the first design ran around K1, K2 and K5
+    and this one must not: a (16, total) table's index_select along its
+    keys (the gather after the sort), ``tiling.regroup_rows_by_slot``,
+    segment_reduce on pre-sort rows and bucket_histogram (the histogram
+    whose cumsum gave the tile ranges)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import histogram
     from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
     from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
 
@@ -441,6 +546,7 @@ def first_design_calls():
         return index_select
 
     before = sr.segment_reduce.launches
+    before_hist = histogram.bucket_histogram.launches
     tiling.regroup_rows_by_slot = count_regroup
     torch.Tensor.index_select = counted(selects[0])
     torch.index_select = counted(selects[1])
@@ -451,16 +557,18 @@ def first_design_calls():
         torch.Tensor.index_select, torch.index_select = selects
         calls["segment_reduce on pre-sort rows"] = (sr.segment_reduce.launches
                                                     - before)
+        calls["bucket_histogram (histogram_kernel)"] = (
+            histogram.bucket_histogram.launches - before_hist)
 
 
-def device_busy(fn, reps: int) -> dict:
+def device_busy(fn, reps: int, expect: tuple) -> dict:
     """The device's busy share of a window of reps calls of fn, and the
-    device events that take the most of its time."""
-    wall_ms, rows = profile_device(fn, reps)
-    device_ms_ = sum(us for _, us, _ in rows) / 1e3
+    device events that take the most of its time (``profiled``)."""
+    wall_ms, calls = profiled(fn, reps, expect)
+    device_ms_ = sum(us for _, us, _ in calls) * reps / 1e3
     by_name = {}  # names cut to 90 characters; kernels that share one add up
-    for name, us, _ in rows:
-        by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 1e3 / reps
+    for name, us, _ in calls:
+        by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda r: -r[1])[:10]
     return {"window_ms": wall_ms, "device_busy_ms": device_ms_,
             "busy_share": device_ms_ / wall_ms,
@@ -522,6 +630,29 @@ def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
     if not torch.equal(hist, hist_p):
         raise AssertionError(f"{label}: bucket_histogram differs")
     errs["bucket_histogram"] = max_abs(hist, hist_p)
+
+    fused = frame.keys.fused
+    bounds = histogram.tile_ranges(fused, frame.dbits, frame.num_tiles)
+    pairs = {
+        "plain": histogram.tile_ranges_plain(fused, frame.dbits,
+                                             frame.num_tiles),
+        "torch.searchsorted": torch.searchsorted(ids, torch.arange(
+            frame.num_tiles + 1, dtype=torch.int32,
+            device=ids.device)).int(),
+        "the old chain": old_tile_ranges(fused, frame.dbits,
+                                         frame.num_tiles),
+        "the main path's tile_start": torch.cat([
+            frame.keys.tile_start, frame.keys.tile_end[-1:]]),
+    }
+    torch.cuda.synchronize()
+    bad = [n for n, b in pairs.items() if not torch.equal(bounds, b)]
+    print(f"  {label} tile_ranges (K2): bit-identical to "
+          f"{len(pairs) - len(bad)} of {len(pairs)} ({', '.join(pairs)}); "
+          f"{int(bounds[-1])} live of {fused.numel()} keys", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: tile_ranges differs from "
+                             + ", ".join(bad))
+    errs["tile_ranges"] = max(max_abs(bounds, b) for b in pairs.values())
 
     k = frame.keys
     worst = 0.0
@@ -704,17 +835,19 @@ def train_stage_ms(config, state, inputs) -> dict:
     def attrs():
         with torch.enable_grad():
             return R.compute_raw_attrs(x, f, q, t, cam, band)
-    out["attributes (forward, building the graph)"] = both_ms(attrs, reps)
+    out["attributes (forward, building the graph)"] = both_ms(attrs, reps, EW)
     raw, radius = attrs()
     raw_v = R.RawAttrs(*(a.detach() for a in raw))
     keys_fn = lambda: R.build_keys(raw_v, radius.detach(), s.invalid,  # noqa: E731
                                    cam, cfg)
-    out["tiling (cull, keys, K1a, sort, K1b, K2)"] = both_ms(keys_fn, reps)
+    out["tiling (cull, keys, K1a, sort, K1b, K2)"] = both_ms(
+        keys_fn, reps, ("slot_keys_kernel(", "sorted_table_kernel(",
+                        "tile_ranges_kernel(") + SORT)
     keys, table, visible = keys_fn()
     k3 = lambda: blend.blend_forward(  # noqa: E731
         table, keys.tile_start, keys.tile_end, tile=tile, tiles_x=grid[0],
         tiles_y=grid[1], rgb_only=True)
-    out["blend_forward (K3)"] = both_ms(k3, reps)
+    out["blend_forward (K3)"] = both_ms(k3, reps, ("blend_forward_kernel(",))
     out_tiles = k3()
     rgb = R._assemble(out_tiles, cam, cfg).rgb
     gt = gt_u8.to(torch.float32) * (1.0 / 255.0)
@@ -727,23 +860,24 @@ def train_stage_ms(config, state, inputs) -> dict:
                                features=ff, invalid_mask=s.invalid)[0]
             return torch.autograd.grad(val, (p, ff))
     out["loss (L1 + SSIM + scale reg, value and gradient)"] = both_ms(
-        loss, reps)
+        loss, reps, EW)
     d_pred, _ = loss()
     d_tiles = R._image_to_tiles(d_pred, grid[0], grid[1], tile)
     cfin = out_tiles[..., 0:3].contiguous()
     k4 = lambda: blend.blend_backward(  # noqa: E731
         table, keys.tile_start, keys.tile_end, d_tiles, cfin, tile=tile,
         tiles_x=grid[0], tiles_y=grid[1], imggrad=False)
-    out["blend_backward (K4)"] = both_ms(k4, reps)
+    out["blend_backward (K4)"] = both_ms(k4, reps,
+                                         ("blend_backward_kernel(",))
     d_table, _ = k4()
     rows = d_table[0:12]
     inv_fn = lambda: tiling.inverse_permutation(keys.orig_slot)  # noqa: E731
-    out["inverse key permutation"] = both_ms(inv_fn, reps)
+    out["inverse key permutation"] = both_ms(inv_fn, reps, EW)
     inv = inv_fn()
     k5 = lambda: sr.segment_reduce_sorted(rows, inv, keys.offsets,  # noqa: E731
                                           keys.counts)
     out["segment_reduce (K5, through the inverse permutation)"] = both_ms(
-        k5, reps)
+        k5, reps, ("segment_reduce_kernel(",))
     d_raw, (mag, npix, _) = R._blend_bwd_impl(
         raw_v, keys, table, out_tiles, d_tiles, tile, grid, cfg)
 
@@ -752,7 +886,7 @@ def train_stage_ms(config, state, inputs) -> dict:
             (raw.uv, raw.conic, raw.opacity, raw.color), (x, f),
             (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color),
             retain_graph=True)
-    out["attribute VJP (autograd)"] = both_ms(vjp, reps)
+    out["attribute VJP (autograd)"] = both_ms(vjp, reps, EW)
     d_xyz, d_feat = vjp()
     ftx, ptx = trainer.make_optimizers(config)
     gf = torch.from_numpy(trainer.grad_factor_vector(cfg)).to(s.xyz.device)
@@ -765,7 +899,7 @@ def train_stage_ms(config, state, inputs) -> dict:
         ftx.update(df, state.feat_opt, s.features)
         ptx.update(dx, state.pos_opt, s.xyz)
         controller.accumulate(state.ctrl, visible, npix, mag, dx)
-    out["grad factors, two Adams, accumulate"] = both_ms(update, reps)
+    out["grad factors, two Adams, accumulate"] = both_ms(update, reps, EW)
     return out
 
 
@@ -820,7 +954,9 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
     for name, v in stages.items():
         print(f"  train stage {name}: wall {v['wall_ms']:.4f} ms, device "
               f"{v['device_ms']:.4f} ms", flush=True)
-    busy = device_busy(one_step, reps=5)
+    busy = device_busy(one_step, reps=5,
+                       expect=("blend_backward_kernel(",
+                               "segment_reduce_kernel("))
     print(f"  train profiler: {busy}", flush=True)
     return {"train_ms_per_step": step_ms,
             "train_mpix_s": HEIGHT * WIDTH / 1e6 / (step_ms / 1e3),
@@ -832,6 +968,368 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
             "train_peak_mem_gib": peak_gib, "train_stage_ms": stages,
             "train_device_ms_per_step": busy["device_busy_ms"] / 5,
             "train_profile": busy}
+
+
+# --- phase 5: the training loop -------------------------------------------------
+
+LOOP_ITERS = 40
+LOOP_SIZES = {(HEIGHT // 2 - (HEIGHT // 2) % TILE, WIDTH // 2): "480x256",
+              (HEIGHT, WIDTH): f"{WIDTH}x{HEIGHT}"}
+
+
+class MemoryViews:
+    """ImagePoseDataset's interface over DatasetItems held in memory."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def loop_views(K_np, dev, count=8):
+    """``count`` DatasetItems at 960x544, rendered at ``poses(count)`` from
+    a second seeded scene and quantized to 8 bits as a PNG decode gives
+    them (uint8 / 255 in f32)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.data.camera import CameraInfo
+    from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
+        DatasetItem,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+        se3_to_qt,
+    )
+
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xyz_t, feats_t = truck_scene_surround(N_POINTS, seed=1)
+    xyz_t, feats_t = put(xyz_t), put(feats_t)
+    invalid = torch.zeros(N_POINTS, dtype=torch.bool, device=dev)
+    qs, ts = se3_to_qt(put(poses(count)))
+    cam = R.Camera(put(K_np), WIDTH, HEIGHT)
+    cfg = R.RasterizerConfig(rgb_only=True, tile_size=TILE)
+    items = []
+    for i in range(count):
+        rgb = R.rasterize(xyz_t, feats_t, invalid, qs[i], ts[i], cam, cfg).rgb
+        u8 = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255).to(torch.uint8)
+        items.append(DatasetItem(
+            image=u8.cpu().numpy().astype(np.float32) / 255.0,
+            q_pointcloud_camera=qs[i].cpu().numpy(),
+            t_pointcloud_camera=ts[i].cpu().numpy(),
+            camera_info=CameraInfo(K_np.copy(), HEIGHT, WIDTH, 0), index=i))
+    return items
+
+
+def loop_config(log_dir: str, **over):
+    """The loop's schedule, built without YAML."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        from_dict,
+    )
+
+    d = {
+        "num_iterations": LOOP_ITERS, "val_interval": 20,
+        "initial_downsample_factor": 2, "half_downsample_factor_interval": 20,
+        "increase_color_max_sh_band_interval": 10,
+        "log_loss_interval": 10, "log_metrics_interval": 20,
+        "print_metrics_to_console": True, "num_data_threads": 2,
+        "summary_writer_log_dir": log_dir,
+        "rasterisation_config": {"tile_size": TILE},
+        "adaptive_controller_config": {
+            "num_iterations_warm_up": 10, "num_iterations_densify": 10,
+            "num_iterations_reset_alpha": 25,
+            # every in-camera point with any gradient densifies: each round
+            # fills the free and the pruned slots
+            "densification_view_space_position_gradients_threshold": 1e-12,
+        },
+        "gaussian_point_cloud_scene_config": {"max_num_points_ratio": 1.25},
+    }
+    d.update(over)
+    return from_dict(d)
+
+
+def loop_trainer_class(train_items, val_items, xyz, feats, saved_as):
+    """The trainer with in-memory views, the phase-4 scene in a padded
+    pool, and scene files written as .parquet, or as .ply where pandas or
+    its parquet engine is missing (``saved_as`` records which)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+
+    class SmokeTrainer(trainer.GaussianPointCloudTrainer):
+        def _load_datasets(self):
+            return MemoryViews(train_items), MemoryViews(val_items)
+
+        def _load_scene(self):
+            return scene_lib.create_scene(
+                xyz, self.config.gaussian_point_cloud_scene_config,
+                features=feats, device=self.device)
+
+        def _save_scene(self, scene, path):
+            try:
+                scene_lib.to_parquet(scene, path)
+            except ImportError as e:
+                path = str(Path(path).with_suffix(".ply"))
+                scene_lib.to_ply(scene, path)
+                if not saved_as:
+                    print(f"  scene files as .ply: no parquet writer ({e})",
+                          flush=True)
+            if not saved_as:
+                print(f"  scene files written as {Path(path).suffix}",
+                      flush=True)
+            saved_as.append(path)
+
+    return SmokeTrainer
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts, while open, the calls of the plain versions of the main
+    path's kernels (the wrappers take them for CPU tensors only)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import (
+        blend, expand, histogram, segment_reduce as sr,
+    )
+
+    fns = [(expand, "slot_keys_plain"), (expand, "sorted_table_plain"),
+           (histogram, "tile_ranges_plain"), (blend, "blend_forward_plain"),
+           (blend, "blend_backward_plain"),
+           (sr, "segment_reduce_sorted_plain")]
+    calls = {name: 0 for _, name in fns}
+    saved = [getattr(mod, name) for mod, name in fns]
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for (mod, name), fn in zip(fns, saved):
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(fns, saved):
+            setattr(mod, name, fn)
+
+
+def synced_ms(fn, *a, **kw):
+    """(fn's result, its ms between two device synchronizations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def timed_calls(obj, name: str, sink: dict):
+    """Replace ``obj.name`` by a wrapper that appends the ms of each call
+    (between two device syncs) to ``sink[name]``; returns the original."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        out, ms_ = synced_ms(fn, *a, **kw)
+        sink.setdefault(name, []).append(ms_)
+        return out
+
+    setattr(obj, name, timed)
+    return fn
+
+
+def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda") -> dict:
+    """Phase 5: ``GaussianPointCloudTrainer.train()`` at full width, then a
+    resume from its checkpoint. Returns the loop's record."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training import checkpoint
+    from taichi_3d_gaussian_splatting_tpu_torch.training import (
+        trainer as trainer_mod,
+    )
+
+    views = loop_views(K_np, dev)
+    saved_as = []
+    Trainer = loop_trainer_class(views[:6], views[6:], xyz, feats, saved_as)
+    log_dir = tempfile.TemporaryDirectory()
+    trainer = Trainer(loop_config(log_dir.name), device=dev)
+    capacity, n_valid0 = trainer.scene.capacity, int(trainer.scene.num_valid())
+    marks, losses, num_keys, rounds, evals, saves = [], [], [], [], [], {}
+    host = {}  # ms of each call of the loop's host-side pieces
+
+    get_step = trainer._get_step
+
+    def timed_get_step(h, w):
+        step = get_step(h, w)
+
+        def timed(state, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, *a)
+            torch.cuda.synchronize()
+            marks.append(((h, w), t0, time.perf_counter()))
+            losses.append(out[1]["loss"])
+            num_keys.append(out[1]["num_keys"])
+            return out
+        return timed
+
+    find, apply = trainer.densify_find, trainer.densify_apply
+
+    def timed_find(*a):
+        info, find_ms = synced_ms(find, *a)
+        rounds.append({"find_ms": find_ms})
+        return info
+
+    def timed_apply(scene, info, generator):
+        (new_scene, new_ctrl), apply_ms = synced_ms(apply, scene, info,
+                                                    generator)
+        rounds[-1].update(
+            apply_ms=apply_ms, iteration=len(marks) - 1,
+            num_valid_before=int(scene.num_valid()),
+            num_valid_after=int(new_scene.num_valid()),
+            densify=int(info.densify_mask.sum()),
+            removed=int(info.remove_mask.sum()))
+        return new_scene, new_ctrl
+
+    eval_frame = trainer._eval_frame
+
+    def timed_eval(*a):
+        out, ms_ = synced_ms(eval_frame, *a)
+        evals.append(ms_)
+        return out
+
+    save = checkpoint.save_checkpoint
+
+    def timed_save(path, state, meta):
+        _, ms_ = synced_ms(save, path, state, meta)
+        # the train step and the controller build new tensors, so the state
+        # saved here stays as it was for the resume check below
+        saves.update(ms=ms_, state=state, meta=meta)
+
+    trainer._get_step = timed_get_step
+    trainer.densify_find, trainer.densify_apply = timed_find, timed_apply
+    trainer._eval_frame = timed_eval
+    for name in ("_item_tensors", "_save_scene", "_log_step"):
+        timed_calls(trainer, name, host)
+    downsample = timed_calls(trainer_mod, "downsample_item", host)
+    checkpoint.save_checkpoint = timed_save
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with plain_calls() as plain, first_design_calls() as off_path:
+            state = trainer.train()
+            torch.cuda.synchronize()
+    finally:
+        checkpoint.save_checkpoint = save
+        trainer_mod.downsample_item = downsample
+    train_s = time.perf_counter() - t0
+    # the end-to-end figure: the whole train() window over its iterations
+    # (densify, resets, validation, exports and start-up included)
+    loop_ms = train_s * 1e3 / max(len(marks), 1)
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_list = [float(v) for v in losses]
+
+    # an iteration's wall: from its step's start to the next step's start
+    # (the step, then densify, logging, validation, the next item's fetch)
+    densify_its = {r["iteration"] for r in rounds}
+    by_size, busy_iters = {}, {}
+    for i in range(len(marks) - 1):
+        size = LOOP_SIZES.get(marks[i][0], str(marks[i][0]))
+        wall = (marks[i + 1][1] - marks[i][1]) * 1e3
+        step_i = (marks[i][2] - marks[i][1]) * 1e3
+        first_of_size = i == 0 or marks[i - 1][0] != marks[i][0]
+        special = (first_of_size or i in densify_its or i == 25 or i == 20
+                   or i % 20 == 0)
+        if special:
+            busy_iters[i] = wall
+            continue
+        by_size.setdefault(size, []).append((wall, step_i))
+    iteration_ms = {s: float(np.median([w for w, _ in v]))
+                    for s, v in by_size.items()}
+    step_in_loop_ms = {s: float(np.median([st for _, st in v]))
+                       for s, v in by_size.items()}
+    host_ms = {k: {"calls": len(v), "median_ms": float(np.median(v)),
+                   "max_ms": float(max(v))} for k, v in host.items()}
+    # the same step on the loop's last state, back to back as in phase 4
+    item = views[6]
+    st = state
+    args = trainer._item_tensors(item)
+    bare_step = get_step(HEIGHT, WIDTH)
+
+    def one_step():
+        nonlocal st
+        st = bare_step(st, *args, 3)[0]
+    bare_ms = cuda_ms(one_step, reps=10, warmup=2)
+    files = sorted(p.name for p in Path(log_dir.name).iterdir())
+    print(f"  {len(marks)} iterations in {train_s:.2f} s, {loop_ms:.2f} ms "
+          f"an iteration over the whole window; ms an iteration "
+          f"(median of the plain ones) {iteration_ms}, of which the step "
+          f"(between syncs) {step_in_loop_ms}; the loop's step back to "
+          f"back on its last state {bare_ms:.3f} ms, phase 4's "
+          f"{step_ms:.3f} ms; keys a step {num_keys[0]} (first), "
+          f"{num_keys[19]} (last at 480x256), {num_keys[-1]} (last); "
+          f"iterations with densify / reset / validation / metrics "
+          f"{busy_iters}", flush=True)
+    print(f"  host pieces {host_ms}", flush=True)
+    print(f"  densify rounds {rounds}; validation frames {evals} ms; "
+          f"checkpoint save {saves.get('ms')} ms; files {files}", flush=True)
+    print(f"  losses {loss_list[0]:.5f} (first) -> {loss_list[-1]:.5f} "
+          f"(last); launches {launches}; plain versions {plain}; first "
+          f"design's calls {off_path}; peak {peak_gib:.2f} GiB", flush=True)
+
+    if len(marks) != LOOP_ITERS or not all(math.isfinite(v)
+                                           for v in loss_list):
+        raise AssertionError("the loop did not run its iterations with "
+                             "finite losses")
+    if not any(r["num_valid_after"] != r["num_valid_before"] for r in rounds):
+        raise AssertionError("no densify round changed num_valid")
+    if not saves or "checkpoint_latest" not in files or not saved_as:
+        raise AssertionError("the validation wrote no scene or checkpoint")
+    n_renders = LOOP_ITERS + len(evals)
+    want = {"slot_keys": n_renders, "sorted_table": n_renders,
+            "tile_ranges": n_renders, "blend_forward": n_renders,
+            "blend_backward": LOOP_ITERS,
+            "segment_reduce_sorted": LOOP_ITERS}
+    if launches != want:
+        raise AssertionError(f"loop launches {launches}, expected {want}")
+    if any(plain.values()) or any(off_path.values()):
+        raise AssertionError(f"the loop ran a plain version or the first "
+                             f"design: {plain} {off_path}")
+
+    # resume a fresh trainer from the checkpoint: with num_iterations one
+    # past the saved iteration, train() runs nothing and returns the
+    # restored state
+    saved_it = int(saves["meta"]["iteration"])
+    resumed = Trainer(loop_config(
+        log_dir.name + "/resumed", num_iterations=saved_it + 1,
+        resume_from=str(Path(log_dir.name) / "checkpoint_latest")),
+        device=dev)
+    restored, resume_ms = synced_ms(resumed.train)
+    same = [bool(torch.equal(a, b)) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(checkpoint.state_leaves(restored),
+                            checkpoint.state_leaves(saves["state"]))]
+    same_rng = (resumed.generator.get_state().tolist()
+                == saves["meta"]["rng_state"])
+    print(f"  resumed at iteration {saved_it + 1} in {resume_ms:.1f} ms: "
+          f"{sum(same)} of {len(same)} leaves equal, generator state equal "
+          f"{same_rng}", flush=True)
+    if not (all(same) and same_rng):
+        raise AssertionError("the resumed state differs from the saved one")
+    log_dir.cleanup()
+    return {
+        "loop_iterations": len(marks), "loop_train_s": train_s,
+        "loop_ms_per_iteration": loop_ms,
+        "loop_capacity": capacity, "loop_num_valid_start": n_valid0,
+        "loop_num_valid_end": int(state.scene.num_valid()),
+        "loop_iteration_ms": iteration_ms,
+        "loop_step_in_loop_ms": step_in_loop_ms,
+        "loop_bare_step_ms": bare_ms, "loop_host_ms": host_ms,
+        "loop_num_keys": num_keys, "loop_phase4_step_ms": step_ms,
+        "loop_special_iteration_ms": busy_iters,
+        "loop_densify_rounds": rounds, "loop_validation_frame_ms": evals,
+        "loop_checkpoint_save_ms": saves["ms"], "loop_resume_ms": resume_ms,
+        "loop_losses": loss_list, "loop_launches": launches,
+        "loop_plain_calls": plain, "loop_first_design_calls": off_path,
+        "loop_peak_mem_gib": peak_gib, "loop_scene_files": saved_as,
+    }
 
 
 # --- main -------------------------------------------------------------------
@@ -871,12 +1369,12 @@ def main(argv=None) -> int:
     # every kernel of the main path, by its launch counter; K1 is two
     render_kernels = {"slot_keys": expand.slot_keys,
                       "sorted_table": expand.sorted_table,
-                      "bucket_histogram": histogram.bucket_histogram,
+                      "tile_ranges": histogram.tile_ranges,
                       "blend_forward": blend.blend_forward}
     kernels = dict(render_kernels, blend_backward=blend.blend_backward,
                    segment_reduce_sorted=sr.segment_reduce_sorted)
     counters_of = {"expand_keys": ("slot_keys", "sorted_table"),
-                   "bucket_histogram": ("bucket_histogram",),
+                   "tile_ranges": ("tile_ranges",),
                    "blend_forward": ("blend_forward",),
                    "blend_backward": ("blend_backward",),
                    "segment_reduce": ("segment_reduce_sorted",)}
@@ -981,7 +1479,8 @@ def main(argv=None) -> int:
     frames_s = time.perf_counter() - t0
     mpix_s = HEIGHT * WIDTH / 1e6 / (frame_ms / 1e3)
     stages = stage_ms(renderer, q_id, t_id)
-    busy = device_busy(one_frame, reps=18)
+    busy = device_busy(one_frame, reps=18,
+                       expect=("blend_forward_kernel(",))
     for name, v in stages.items():
         print(f"  stage {name}: wall {v['wall_ms']:.4f} ms, device "
               f"{v['device_ms']:.4f} ms", flush=True)
@@ -1007,12 +1506,12 @@ def main(argv=None) -> int:
                                             **full.expand_kw),
                      expand.sorted_table_plain(fused_s, perm, owner, att,
                                                **full.table_kw))),
-        "bucket_histogram": (
-            [(lambda: histogram.bucket_histogram(full.tile_ids,
-                                                 full.num_tiles),
-              "histogram_kernel")],
-            lambda: histogram.bucket_histogram_plain(full.tile_ids,
-                                                     full.num_tiles)),
+        "tile_ranges": (
+            [(lambda: histogram.tile_ranges(fused_s, full.dbits,
+                                            full.num_tiles),
+              "tile_ranges_kernel")],
+            lambda: histogram.tile_ranges_plain(fused_s, full.dbits,
+                                                full.num_tiles)),
         "blend_forward": (
             [(lambda: blend.blend_forward(rgb_table, k.tile_start,
                                           k.tile_end, rgb_only=True,
@@ -1045,12 +1544,39 @@ def main(argv=None) -> int:
                for n, (parts, _) in timed.items()}
     # the plain blend and segment sum launch a few kernels a key position
     plain_ms = {n: device_ms(p, reps=2 if n in ("blend_forward",
-                                                "segment_reduce") else 10)
+                                                "segment_reduce") else 10,
+                             expect=("searchsorted",) if n == "tile_ranges"
+                             else EW)
                 for n, (_, p) in timed.items() if p is not None}
     plain_ms["blend_backward"] = k4_plain_ms  # its one call in phase 1b
-    bincount_ms = device_ms(
-        lambda: torch.bincount(full.tile_ids, minlength=full.num_tiles),
-        reps=50)
+    # K2's first design, off the main path now: its kernel, the chain the
+    # main path ran (zero fills, kernel, cumsum, copy) and the library call
+    # of its histogram half
+    queries = torch.arange(full.num_tiles + 1, dtype=torch.int32,
+                           device=dev)
+    searchsorted_ms = device_ms(lambda: torch.searchsorted(
+        full.tile_ids, queries, out_int32=True), reps=50,
+        expect=("searchsorted",))
+    old_chain = lambda: old_tile_ranges(  # noqa: E731
+        fused_s, full.dbits, full.num_tiles)
+    k2_first = {
+        "histogram_kernel_ms": kernel_ms(
+            lambda: histogram.bucket_histogram(full.tile_ids,
+                                               full.num_tiles),
+            "histogram_kernel", reps=50),
+        "old_chain_device_ms": device_ms(old_chain, reps=50,
+                                         expect=("histogram_kernel(",)),
+        "old_chain_wall_ms": cuda_ms(old_chain, reps=50, warmup=5),
+        "tile_ranges_wall_ms": call_ms["tile_ranges"],
+        "bincount_ms": device_ms(
+            lambda: torch.bincount(full.tile_ids, minlength=full.num_tiles),
+            reps=50, expect=("Histogram",)),
+        "bucket_histogram_max_abs_err": errs["bucket_histogram"],
+    }
+    print(f"  K2: tile_ranges {ms['tile_ranges']:.5f} ms (device), "
+          f"{call_ms['tile_ranges']:.5f} ms (events); the first design "
+          f"{k2_first}; torch.searchsorted {searchsorted_ms:.5f} ms",
+          flush=True)
     lengths = k.counts.long()
 
     def segment_reduce_library():
@@ -1060,8 +1586,9 @@ def main(argv=None) -> int:
         d_orig = torch.empty_like(rows_k5).index_copy_(1, perm, rows_k5)
         return torch.segment_reduce(d_orig.T.contiguous(), "sum",
                                     lengths=lengths, axis=0, unsafe=True)
-    segment_reduce_lib_ms = device_ms(segment_reduce_library, reps=50)
-    library_ms = {"bucket_histogram": bincount_ms,
+    segment_reduce_lib_ms = device_ms(segment_reduce_library, reps=50,
+                                      expect=("index_copy", "segment_reduce"))
+    library_ms = {"tile_ranges": searchsorted_ms,
                   "segment_reduce": segment_reduce_lib_ms}
     # the first design's stages around K1 and K5 (this design's are in
     # the render and train stage tables)
@@ -1074,6 +1601,10 @@ def main(argv=None) -> int:
     phase("phase 4: train steps at full width")
     train = run_training(xyz, feats, renderer.camera, {"tile_size": TILE},
                          kernels)
+
+    # phase 5: the training loop, with the launch counts read around it
+    phase("phase 5: the training loop at full width")
+    loop = run_loop(xyz, feats, K_np, train["train_ms_per_step"], kernels)
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -1094,8 +1625,9 @@ def main(argv=None) -> int:
         # (~45 flops)
         "expand_keys": (4 * 4 * n + 10 * 4 * n + 17 * 4 * total,
                         total * (2 * math.ceil(math.log2(n)) + 45)),
-        # reads every sorted tile id, writes the counts; one add per id
-        "bucket_histogram": (4 * total + 4 * full.num_tiles, total),
+        # reads every sorted key, writes the num_tiles + 1 bounds; one
+        # comparison per key
+        "tile_ranges": (4 * total + 4 * (full.num_tiles + 1), total),
         # reads 9 table rows of every live key (rgb_only) and the ranges,
         # writes 8 floats a pixel; 16 flops per evaluated (pixel, key) pair
         # (quadratic, exp, test) and 11 more per blended pair
@@ -1117,7 +1649,7 @@ def main(argv=None) -> int:
     source = "taichi_3d_gaussian_splatting_tpu_torch/csrc/{}.cu"
     replaces = {
         "expand_keys": "taichi_3d_gaussian_splatting_tpu/ops/expand.py:318",
-        "bucket_histogram":
+        "tile_ranges":
             "taichi_3d_gaussian_splatting_tpu/ops/histogram.py:78",
         "blend_forward":
             "taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py:389",
@@ -1126,7 +1658,7 @@ def main(argv=None) -> int:
         "segment_reduce":
             "taichi_3d_gaussian_splatting_tpu/ops/segment_reduce.py:235",
     }
-    src = {"expand_keys": "expand", "bucket_histogram": "histogram",
+    src = {"expand_keys": "expand", "tile_ranges": "histogram",
            "blend_forward": "blend", "blend_backward": "blend_backward",
            "segment_reduce": "segment_reduce"}
     rows = []
@@ -1137,7 +1669,9 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source.format(src[name]),
             "replaces": replaces[name],
-            "launches": sum(train["train_launches"][c] for c in counters),
+            "launches": sum(loop["loop_launches"][c] for c in counters),
+            "launches_train_steps": sum(train["train_launches"][c]
+                                        for c in counters),
             "launches_per_step": sum(train["train_launches_per_step"][c]
                                      for c in counters),
             "launches_per_frame": sum(launches.get(c, 0)
@@ -1150,6 +1684,8 @@ def main(argv=None) -> int:
         })
         if name in order_ms:
             rows[-1]["tile_order_ms"] = order_ms[name]
+        if name == "tile_ranges":
+            rows[-1]["first_design"] = k2_first
 
     record = {
         "card": card, "points": N_POINTS, "image": [WIDTH, HEIGHT],
@@ -1163,13 +1699,13 @@ def main(argv=None) -> int:
                          if k_ != "tile_block_keys"},
         "launches_per_frame": {n: launches[n] / len(pose_list)
                                for n in launches},
-        "bincount_ms": bincount_ms,
+        "k2_first_design": k2_first, "searchsorted_ms": searchsorted_ms,
         "segment_reduce_library_ms": segment_reduce_lib_ms,
         "kernel_call_wall_ms": call_ms, "first_design_stage_ms": design_ms,
         "render_first_design_calls": off_path,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
-        **train,
+        **train, **loop, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
     }
     print(f"render: {frame_ms:.3f} ms/frame, {mpix_s:.1f} Mpix/s; "
@@ -1177,7 +1713,10 @@ def main(argv=None) -> int:
     phase("done")
     print(f"train: {train['train_ms_per_step']:.3f} ms/step, "
           f"{train['train_mpix_s']:.1f} Mpix/s, peak "
-          f"{train['train_peak_mem_gib']:.2f} GiB", flush=True)
+          f"{train['train_peak_mem_gib']:.2f} GiB; loop: "
+          f"{loop['loop_ms_per_iteration']:.2f} ms an iteration (whole "
+          f"window), {loop['loop_iteration_ms']} ms a plain one by size",
+          flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

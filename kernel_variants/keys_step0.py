@@ -128,13 +128,23 @@ class FirstDesign:
         return out
 
 
-def timed(fn, reps: int = 20) -> dict:
+def timed(fn, expect: tuple, reps: int = 20) -> dict:
     """CUDA-event ms of one call over ``reps`` back-to-back calls (the
     larger of the host's and the device's rate) and the device ms of one
-    call (torch.profiler: the kernels, copies and sets it runs)."""
+    call (torch.profiler: the kernels, copies and sets it runs, in a window
+    that shows the events named in ``expect``, ``chip_smoke.profiled``)."""
     import chip_smoke as cs
 
-    return {"events_ms": cs.cuda_ms(fn, reps), "device_ms": cs.device_ms(fn, reps)}
+    return {"events_ms": cs.cuda_ms(fn, reps),
+            "device_ms": cs.device_ms(fn, reps, expect)}
+
+
+# parts of the names of the device events each timed call must show
+K1_FIRST, K5 = ("expand_kernel(",), ("segment_reduce_kernel(",)
+K1_PACKAGE = ("slot_keys_kernel(", "sorted_table_kernel(")
+K4 = ("blend_backward_kernel(",)
+GATHER = ("scatter_gather",)  # index_select along the keys
+REGROUP = ("index_copy",)
 
 
 def segment_lengths(counts: torch.Tensor) -> dict:
@@ -229,6 +239,7 @@ def check_against_first(first: FirstDesign, frame, label: str) -> dict:
 def first_design_stages(first: FirstDesign, frame, rows) -> dict:
     """Each stage of the first design around K1 and K5 alone (step 0), at
     the frame and K4's rows; the sort is both designs'."""
+    import chip_smoke as cs
     from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
 
     k = frame.keys
@@ -238,24 +249,25 @@ def first_design_stages(first: FirstDesign, frame, rows) -> dict:
     d_orig = tiling.regroup_rows_by_slot(rows, perm)
     seg = torch.empty((rows.shape[0], k.offsets.shape[0]), device=rows.device)
     stages = {
-        "first: K1 (keys and pre-sort table)": lambda: first.expand_keys(
-            *frame.expand_args, **frame.expand_kw, out=out1),
-        "both: torch.sort(fused, stable=True)": lambda: torch.sort(
-            fused, stable=True),
-        "first: table.index_select(1, perm)": lambda: table.index_select(
-            1, perm),
-        "first: regroup_rows_by_slot (12 rows)": lambda: (
-            tiling.regroup_rows_by_slot(rows, perm)),
-        "first: K5 (pre-sort rows)": lambda: first.segment_reduce(
-            d_orig, k.offsets, k.counts, out=seg),
+        "first: K1 (keys and pre-sort table)": (lambda: first.expand_keys(
+            *frame.expand_args, **frame.expand_kw, out=out1), K1_FIRST),
+        "both: torch.sort(fused, stable=True)": (lambda: torch.sort(
+            fused, stable=True), cs.SORT),
+        "first: table.index_select(1, perm)": (lambda: table.index_select(
+            1, perm), GATHER),
+        "first: regroup_rows_by_slot (12 rows)": (lambda: (
+            tiling.regroup_rows_by_slot(rows, perm)), REGROUP),
+        "first: K5 (pre-sort rows)": (lambda: first.segment_reduce(
+            d_orig, k.offsets, k.counts, out=seg), K5),
     }
-    return {name: timed(fn) for name, fn in stages.items()}
+    return {name: timed(*fe) for name, fe in stages.items()}
 
 
 def package_stages(first: FirstDesign, frame, rows) -> dict:
     """The package's stages around K1 and K5 alone, and K5 of both designs
     as the train step meets it, right after K4 has written the rows: (K4
     then K5) less K4 alone."""
+    import chip_smoke as cs
     from taichi_3d_gaussian_splatting_tpu_torch.ops import expand
     from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
     from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
@@ -267,22 +279,24 @@ def package_stages(first: FirstDesign, frame, rows) -> dict:
     seg = torch.empty((rows.shape[0], k.offsets.shape[0]), device=rows.device)
     k4 = blend_backward_call(frame)
     stages = {
-        "package: K1a slot_keys": lambda: expand.slot_keys(
-            *frame.expand_args, **frame.expand_kw),
-        "package: K1b sorted_table": lambda: expand.sorted_table(
+        "package: K1a slot_keys": (lambda: expand.slot_keys(
+            *frame.expand_args, **frame.expand_kw), K1_PACKAGE[:1]),
+        "package: K1b sorted_table": (lambda: expand.sorted_table(
             k.fused, perm, owner, frame.expand_args[5], **frame.table_kw),
-        "package: inverse_permutation": lambda: tiling.inverse_permutation(
-            perm),
-        "package: K5 segment_reduce_sorted": lambda: sr.segment_reduce_sorted(
-            rows, inv, k.offsets, k.counts),
-        "K4 alone": k4,
-        "K4, then the first design's regroup + K5": lambda: first.segment_reduce(
-            tiling.regroup_rows_by_slot(k4()[0:12], perm), k.offsets,
-            k.counts, out=seg),
-        "K4, then the package's K5": lambda: sr.segment_reduce_sorted(
-            k4()[0:12], inv, k.offsets, k.counts),
+            K1_PACKAGE[1:]),
+        "package: inverse_permutation": (lambda: tiling.inverse_permutation(
+            perm), cs.EW),
+        "package: K5 segment_reduce_sorted": (lambda: sr.segment_reduce_sorted(
+            rows, inv, k.offsets, k.counts), K5),
+        "K4 alone": (k4, K4),
+        "K4, then the first design's regroup + K5": (
+            lambda: first.segment_reduce(
+                tiling.regroup_rows_by_slot(k4()[0:12], perm), k.offsets,
+                k.counts, out=seg), K4 + REGROUP + K5),
+        "K4, then the package's K5": (lambda: sr.segment_reduce_sorted(
+            k4()[0:12], inv, k.offsets, k.counts), K4 + K5),
     }
-    return {name: timed(fn) for name, fn in stages.items()}
+    return {name: timed(*fe) for name, fe in stages.items()}
 
 
 def paths_in_turns(first: FirstDesign, frame, rows) -> dict:
@@ -327,14 +341,16 @@ def paths_in_turns(first: FirstDesign, frame, rows) -> dict:
         return torch.segment_reduce(d_orig.T.contiguous(), "sum",
                                     lengths=lengths, axis=0, unsafe=True)
 
-    calls = {"K1 path": {"first": k1_first, "package": k1_package},
-             "K5 path": {"first": k5_first, "package": k5_package}}
+    calls = {"K1 path": {"first": (k1_first, K1_FIRST + GATHER),
+                         "package": (k1_package, K1_PACKAGE)},
+             "K5 path": {"first": (k5_first, REGROUP + K5),
+                         "package": (k5_package, K5)}}
     out = {}
     for path, who_fn in calls.items():
         for who in ("first", "package", "package", "first"):
-            out.setdefault(f"{path} {who}", []).append(timed(who_fn[who]))
+            out.setdefault(f"{path} {who}", []).append(timed(*who_fn[who]))
     out["K5 library chain (index_copy_ + torch.segment_reduce)"] = [
-        timed(k5_library)]
+        timed(k5_library, REGROUP + ("segment_reduce",))]
     return out
 
 

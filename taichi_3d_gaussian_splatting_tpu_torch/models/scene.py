@@ -138,6 +138,19 @@ def _initialize_features(point_cloud, cap, config, rgb, seed):
     return feats
 
 
+def to_parquet(scene: GaussianScene, path: str) -> None:
+    """Write the valid points as a parquet of x, y, z and the 56 feature
+    columns."""
+    import pandas as pd
+
+    valid = ~scene.invalid.cpu().numpy()
+    xyz = scene.xyz.detach().cpu().numpy()[valid]
+    feats = scene.features.detach().cpu().numpy()[valid]
+    df = pd.concat([pd.DataFrame(xyz, columns=["x", "y", "z"]),
+                    pd.DataFrame(feats, columns=FEATURE_COLUMNS)], axis=1)
+    df.to_parquet(path)
+
+
 def from_parquet(path: str, config: SceneConfig = SceneConfig(),
                  seed: int = 0, device="cuda") -> GaussianScene:
     """Load a raw (x, y, z[, r, g, b]) or trained scene parquet."""

@@ -1,8 +1,12 @@
-"""Bucket histogram: the per-tile key counts behind the tile ranges.
+"""Tile ranges of the sorted keys, and the bucket histogram behind them.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/histogram.py``
-(``bucket_histogram``). CUDA tensors go to the kernel in
-``csrc/histogram.cu``; CPU tensors to the plain version below.
+(``bucket_histogram``), whose exclusive cumsum over the sorted tile ids the
+JAX package takes as the per-tile key ranges in place of ``searchsorted``.
+The main path calls ``tile_ranges``, which computes those ranges straight
+from the sorted fused keys in one pass; ``bucket_histogram`` keeps the JAX
+function's contract for unsorted ids. CUDA tensors go to the kernels in
+``csrc/histogram.cu``; CPU tensors to the plain versions below.
 """
 from __future__ import annotations
 
@@ -41,3 +45,44 @@ def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
 
 
 bucket_histogram.launches = 0
+
+
+def tile_ranges_plain(fused_sorted: torch.Tensor, dbits: int,
+                      num_tiles: int) -> torch.Tensor:
+    """searchsorted(fused_sorted >> dbits, [0, num_tiles], side='left') as
+    int32: entry b counts the keys whose tile is below b."""
+    tid = (fused_sorted >> dbits).contiguous()
+    b = torch.arange(num_tiles + 1, dtype=torch.int32,
+                     device=fused_sorted.device)
+    return torch.searchsorted(tid, b, side="left", out_int32=True)
+
+
+def tile_ranges(fused_sorted: torch.Tensor, dbits: int,
+                num_tiles: int) -> torch.Tensor:
+    """(num_tiles + 1,) int32 bounds of the per-tile key ranges of the
+    ascending non-negative fused keys ``tile << dbits | depth``: tile t
+    owns [bounds[t], bounds[t + 1]), and bounds[num_tiles] counts the keys
+    below the sentinel tile num_tiles. Equal to the exclusive cumsum of
+    ``bucket_histogram(fused_sorted >> dbits, num_tiles)``."""
+    cuda_build.require(fused_sorted, "fused_sorted", torch.int32, 1)
+    if num_tiles < 0 or not 0 <= dbits < 31:
+        raise ValueError(f"need num_tiles >= 0 and 0 <= dbits < 31, got "
+                         f"{num_tiles}, {dbits}")
+    if fused_sorted.device.type == "cpu":
+        return tile_ranges_plain(fused_sorted, dbits, num_tiles)
+    total = fused_sorted.numel()
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} keys overflow the int32 bounds")
+    bounds = torch.empty((num_tiles + 1,), dtype=torch.int32,
+                         device=fused_sorted.device)
+    launch = cuda_build.bind("histogram", "tile_ranges_launch", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
+    err = launch(fused_sorted.data_ptr(), total, dbits, num_tiles,
+                 bounds.data_ptr(), cuda_build.stream_of(fused_sorted))
+    tile_ranges.launches += 1
+    cuda_build.check(err, "tile_ranges")
+    return bounds
+
+
+tile_ranges.launches = 0

@@ -6,7 +6,7 @@ Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
   compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid; autograd)
   -> build_keys (no gradient: frustum cull, tile bbox, the slot-keys
      kernel, one stable key sort, the sorted-table kernel, the
-     bucket_histogram kernel for the tile ranges)
+     tile_ranges kernel for the tile ranges)
   -> blend_forward kernel -> _assemble (tiles -> image)
   backward: blend_backward kernel -> the segment_reduce kernel, which
      reads the sorted per-key rows through the inverse key permutation ->

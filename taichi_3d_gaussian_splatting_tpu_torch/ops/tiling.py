@@ -14,8 +14,9 @@ key sits at slot offsets[p] + j); and the per-tile [start, end) ranges.
 Stages: ``expand.slot_keys`` (K1a, a CUDA kernel) writes the fused key and
 the owning point of every slot; one stable ``torch.sort`` orders the keys;
 ``expand.sorted_table`` (K1b) writes the blend table in sorted order;
-``bucket_histogram`` (K2) counts each tile's keys, and their exclusive
-cumsum gives the ranges. The TPU design wrote the table before the sort and
+``histogram.tile_ranges`` (K2) writes the per-tile ranges from the sorted
+keys in one pass (the JAX package's histogram of the sorted tile ids and
+its exclusive cumsum). The TPU design wrote the table before the sort and
 let the sort carry it; here nothing gathers the table. The backward reads
 its sorted per-key rows through ``inverse_permutation`` of the sort's
 permutation (``segment_reduce.segment_reduce_sorted``);
@@ -179,9 +180,7 @@ def build_tile_keys_and_table(
     table_s = expand_mod.sorted_table(
         fused_s, perm, owner, att, tiles_u=tiles_u, tile_w=tile_w,
         tile_h=tile_h, dbits=dbits, sentinel=sentinel)
-    hist = histogram_mod.bucket_histogram(fused_s >> dbits, num_tiles)
-    bounds = torch.zeros((num_tiles + 1,), dtype=torch.int32, device=uv.device)
-    bounds[1:] = torch.cumsum(hist, 0)
+    bounds = histogram_mod.tile_ranges(fused_s, dbits, num_tiles)
     keys = TileKeys(
         fused=fused_s, orig_slot=perm, tile_start=bounds[:-1],
         tile_end=bounds[1:], offsets=r.offsets, counts=r.counts,

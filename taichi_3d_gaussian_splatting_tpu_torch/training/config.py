@@ -3,7 +3,8 @@
 Port of ``taichi_3d_gaussian_splatting_tpu/training/config.py``: kebab-case
 and snake_case keys both accepted, unknown keys tolerated, and YAML 1.1
 scalars coerced to the field's type (``1e-5`` parses as a string there).
-PyYAML is imported by ``load_config`` alone: nothing else here needs it.
+PyYAML is imported by ``load_config`` and ``save_template`` alone: nothing
+else here needs it.
 """
 from __future__ import annotations
 
@@ -129,3 +130,18 @@ def load_config(path: str) -> TrainConfig:
 
 def from_dict(data: dict) -> TrainConfig:
     return _from_dict(TrainConfig, data)
+
+
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    return obj
+
+
+def save_template(path: str) -> None:
+    """Write the default TrainConfig as YAML (``--gen_template_only``)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(_to_dict(TrainConfig()), f, sort_keys=False)

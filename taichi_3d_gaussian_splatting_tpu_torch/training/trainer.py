@@ -1,7 +1,10 @@
-"""One training step: forward, loss, backward, Adam, densify accumulators.
+"""Training: one step, the densify and eval steps, and the training loop.
 
-Port of ``make_train_step`` of ``taichi_3d_gaussian_splatting_tpu/training/
-trainer.py`` (without pose refinement and without ``scan_steps``). The step
+Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py`` on one
+device, without pose refinement, ``scan_steps`` windows or multi-device
+training.
+
+``make_train_step`` (without pose refinement and ``scan_steps``): the step
 runs forward (``rasterize_fwd_ctx``: attributes, tile keys, the blend
 kernel), the L1 + SSIM loss, the backward (``rasterize_bwd``: the
 blend_backward kernel, the segment_reduce kernel reading its sorted rows
@@ -13,19 +16,38 @@ it was.
 
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
 the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``.
+
+``GaussianPointCloudTrainer`` drives the steps: progressive downsample,
+SH-band schedule, densify/prune after warm-up, alpha reset, validation
+with scene exports and a full checkpoint, resume, and metrics to
+TensorBoard (tensorboardX, when importable) and to the console as the
+``key=value;`` lines a SageMaker-style scraper reads. The key buffers are
+sized to each frame's exact total, so the JAX trainer's key-capacity refits
+(``fit_key_cap`` and the candidate-mode refit) have nothing to do here;
+their config fields are accepted and ignored.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
+    ImagePoseDataset,
+    PrefetchLoader,
+    downsample_item,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
 from taichi_3d_gaussian_splatting_tpu_torch.models.scene import GaussianScene
 from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     Camera,
     RasterizerConfig,
+    rasterize,
     rasterize_bwd,
     rasterize_fwd_ctx,
 )
@@ -34,6 +56,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
 from taichi_3d_gaussian_splatting_tpu_torch.training.loss import (
     compute_loss,
     psnr as psnr_fn,
+    ssim as ssim_fn,
 )
 
 
@@ -184,7 +207,8 @@ def make_train_step(config: TrainConfig, height: int, width: int,
                 "num_keys": ctx.keys.total,
             }
         aux = {
-            "pred": pred, "stats": stats, "point_depth": ctx.raw.depth,
+            "pred": pred, "depth": out.depth, "count": out.count,
+            "stats": stats, "point_depth": ctx.raw.depth,
             "point_uv": ctx.raw.uv, "grad_features": d_features,
             "grad_xyz": d_xyz,
         }
@@ -194,3 +218,518 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         return new_state, metrics, aux
 
     return step
+
+
+def make_densify_step(config: TrainConfig):
+    """(find, apply, alpha_reset): the selection of a densify round, its
+    mutation (which also resets the controller's accumulators) and the
+    alpha reset."""
+    ccfg = config.adaptive_controller_config
+
+    def find(scene, ctrl_state, stats, point_depth, remove_floaters: bool):
+        return ctrl.find_densify(
+            scene, ctrl_state, stats.in_camera, stats.num_affected_pixels,
+            stats.magnitude_grad_viewspace, point_depth, remove_floaters,
+            ccfg)
+
+    def apply(scene, info, generator: torch.Generator):
+        new_scene = ctrl.apply_densify(scene, info, generator, ccfg)
+        return new_scene, ctrl.init_state(scene.capacity,
+                                          device=scene.xyz.device)
+
+    def alpha_reset(scene):
+        return ctrl.reset_alpha(scene, ccfg)
+
+    return find, apply, alpha_reset
+
+
+def make_eval_step(config: TrainConfig, height: int, width: int):
+    """``eval_step(scene, image_gt, q, t, K, sh_band) -> (metrics, pred,
+    depth, count)``: one full-output render (no slim), its loss without the
+    regularizer, PSNR, the SSIM score and the frame's key total."""
+    rcfg = config.rasterisation_config
+
+    @torch.no_grad()
+    def eval_step(scene: GaussianScene, image_gt, q, t, K, sh_band):
+        if image_gt.dtype == torch.uint8:
+            image_gt = image_gt.to(torch.float32) * (1.0 / 255.0)
+        camera = Camera(K=K, width=width, height=height)
+        out, num_keys = rasterize(
+            scene.xyz, scene.features, scene.invalid, q, t, camera, rcfg,
+            sh_max_band=sh_band, point_object_id=scene.object_id,
+            return_num_keys=True)
+        pred = torch.clamp(out.rgb, 0.0, 1.0)
+        loss, l1, ssim_v = compute_loss(pred, image_gt,
+                                        config.loss_function_config)
+        return {
+            "loss": loss, "l1": l1, "ssim": ssim_v,
+            "psnr": psnr_fn(pred, image_gt),
+            "ssim_score": ssim_fn(pred, image_gt),
+            "num_keys": num_keys,
+        }, pred, out.depth, out.count
+
+    return eval_step
+
+
+def _np(x) -> np.ndarray:
+    """A host numpy copy of a tensor (or an array-like)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _refuse_unported(config: TrainConfig) -> None:
+    """Raise NotImplementedError for the options of the JAX trainer that
+    the port has not ported."""
+    if config.pose_refinement:
+        raise NotImplementedError(
+            "pose_refinement is not ported yet; it comes with the poses "
+            "slice (ROADMAP.md A8)")
+    if (config.multihost or config.data_parallel_devices > 1
+            or config.tile_parallel_devices > 1):
+        raise NotImplementedError(
+            "multihost, data-parallel and tile-parallel training are not "
+            "ported yet; they come with the multi-device slice (ROADMAP.md "
+            "A10)")
+    if config.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1: the JAX package's lax.scan windows "
+            "only saved remote-TPU dispatches; the port runs one step per "
+            "call and does not port them (ROADMAP.md)")
+
+
+class GaussianPointCloudTrainer:
+    """The training loop on one device (``device="cuda"`` by default; the
+    tests pass ``"cpu"``, which runs the kernels' plain versions).
+
+    Data loading and scene I/O go through ``_load_datasets``,
+    ``_load_scene`` and ``_save_scene``, so a caller can substitute its own
+    (e.g. in-memory views, or .ply files where pandas is missing)."""
+
+    def __init__(self, config: TrainConfig, device="cuda"):
+        _refuse_unported(config)
+        self.config = config
+        self.device = torch.device(device)
+        os.makedirs(config.summary_writer_log_dir, exist_ok=True)
+        self.output_model_dir = (config.output_model_dir
+                                 or config.summary_writer_log_dir)
+        os.makedirs(self.output_model_dir, exist_ok=True)
+        self.writer = None
+        try:
+            from tensorboardX import SummaryWriter
+            self.writer = SummaryWriter(
+                log_dir=config.summary_writer_log_dir)
+        except Exception:  # no tensorboardX: metrics go to the console only
+            self.writer = None
+        self.train_dataset, self.val_dataset = self._load_datasets()
+        self.scene = self._load_scene()
+        self.best_psnr_score = 0.0
+        self._step_cache = {}
+        self._eval_cache = {}
+        self.densify_find, self.densify_apply, self.alpha_reset = (
+            make_densify_step(config))
+        # the densify draws; its state is checkpointed, so a resume goes on
+        # with the stream instead of replaying it
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
+        self._profiler = None
+
+    # -- data and scene I/O ---------------------------------------------------
+
+    def _load_datasets(self):
+        """(train, val) datasets of ``ImagePoseDataset`` items."""
+        config = self.config
+        tile = config.rasterisation_config.tile_size
+        return (ImagePoseDataset(config.train_dataset_json_path,
+                                 tile_size=tile),
+                ImagePoseDataset(config.val_dataset_json_path,
+                                 tile_size=tile))
+
+    def _load_scene(self) -> GaussianScene:
+        config = self.config
+        return scene_lib.from_parquet(
+            config.pointcloud_parquet_path,
+            config=config.gaussian_point_cloud_scene_config,
+            seed=config.seed, device=self.device)
+
+    def _save_scene(self, scene: GaussianScene, path: str) -> None:
+        scene_lib.to_parquet(scene, path)
+
+    # -- step caches (one per image size) --------------------------------------
+
+    def _get_step(self, h: int, w: int):
+        key = (h, w)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(self.config, h, w,
+                                                    device=self.device)
+        return self._step_cache[key]
+
+    def _get_eval(self, h: int, w: int):
+        key = (h, w)
+        if key not in self._eval_cache:
+            self._eval_cache[key] = make_eval_step(self.config, h, w)
+        return self._eval_cache[key]
+
+    def _item_tensors(self, item):
+        """(image, q, t, K) of a dataset item on the trainer's device."""
+        put = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a, np.float32)).to(self.device)
+        return (put(item.image), put(item.q_pointcloud_camera),
+                put(item.t_pointcloud_camera),
+                put(item.camera_info.camera_intrinsics))
+
+    def _eval_frame(self, state: TrainState, item, sh_band: int):
+        """One validation render: (metrics, pred, depth, count)."""
+        h = item.camera_info.camera_height
+        w = item.camera_info.camera_width
+        return self._get_eval(h, w)(state.scene, *self._item_tensors(item),
+                                    sh_band)
+
+    # -- logging ----------------------------------------------------------------
+
+    def _scalar(self, tag: str, value, iteration: int):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, float(value), iteration)
+
+    def _console(self, **kv):
+        if self.config.print_metrics_to_console:
+            for k, v in kv.items():
+                print(f"{k}={v};")
+
+    # -- main loop ---------------------------------------------------------------
+
+    def train(self) -> TrainState:
+        config = self.config
+        tile = config.rasterisation_config.tile_size
+        loader = PrefetchLoader(self.train_dataset, shuffle=True,
+                                num_threads=config.num_data_threads,
+                                seed=config.seed)
+        data_iter = iter(loader)
+        state = init_train_state(self.scene, config)
+
+        start_iteration = 0
+        if config.resume_from:
+            # imported here: the checkpoint module imports this one
+            from taichi_3d_gaussian_splatting_tpu_torch.training.checkpoint import (  # noqa: E501
+                load_checkpoint,
+            )
+
+            state, meta = load_checkpoint(config.resume_from, state)
+            start_iteration = int(meta["iteration"]) + 1
+            self.best_psnr_score = float(meta.get("best_psnr", 0.0))
+            # the live stream, not the seed: re-seeding would replay the
+            # densify draws of iterations 0..k
+            self.generator.set_state(
+                torch.tensor(meta["rng_state"], dtype=torch.uint8))
+            print(f"resumed from {config.resume_from} at iteration "
+                  f"{start_iteration}")
+
+        ccfg = config.adaptive_controller_config
+        downsample_factor = config.initial_downsample_factor
+        for _ in range(start_iteration
+                       // config.half_downsample_factor_interval):
+            if downsample_factor > 1:
+                downsample_factor //= 2
+        recent_losses = collections.deque(maxlen=100)
+        self._last_problematic = -1000
+        t_start = time.time()
+        try:
+            iteration = start_iteration - 1
+            while iteration + 1 < config.num_iterations:
+                iteration += 1
+                if (iteration % config.half_downsample_factor_interval == 0
+                        and iteration > 0 and downsample_factor > 1):
+                    downsample_factor //= 2
+                item = next(data_iter)
+                if downsample_factor > 1:
+                    item = downsample_item(item, downsample_factor, tile)
+                h = item.camera_info.camera_height
+                w = item.camera_info.camera_width
+                sh_band = iteration // config.increase_color_max_sh_band_interval
+                state, metrics, aux = self._get_step(h, w)(
+                    state, *self._item_tensors(item), sh_band)
+
+                # densify cadence, on the post-optimizer-step scene
+                warm = iteration >= ccfg.num_iterations_warm_up
+                if warm and iteration % ccfg.num_iterations_densify == 0:
+                    info = self.densify_find(
+                        state.scene, state.ctrl, aux["stats"],
+                        aux["point_depth"],
+                        iteration > ccfg.iteration_start_remove_floater)
+                    if (ccfg.plot_densify_interval
+                            and iteration % ccfg.plot_densify_interval == 0):
+                        self._log_densify_scatter(info, aux, iteration)
+                    new_scene, new_ctrl = self.densify_apply(
+                        state.scene, info, self.generator)
+                    state = state._replace(scene=new_scene, ctrl=new_ctrl)
+                if warm and iteration % ccfg.num_iterations_reset_alpha == 0:
+                    state = state._replace(
+                        scene=self.alpha_reset(state.scene))
+
+                if iteration and iteration % 1234 == 0:
+                    print(f"ftgmm analysis skipped at iteration {iteration}: "
+                          "tools/ftgmm.py is not ported yet (ROADMAP.md A9)")
+
+                # metrics stay on the device and are read at log cadence
+                recent_losses.append(metrics["loss"])
+                self._log_step(state, metrics, aux, iteration, t_start)
+                self._profile_window(iteration)
+
+                log_images_now = (config.log_image_interval and
+                                  iteration % config.log_image_interval == 0)
+                # "problematic" frame: loss over 1.5x the rolling average,
+                # checked at loss-log cadence
+                problematic = False
+                if (iteration % config.log_loss_interval == 0
+                        and len(recent_losses) == recent_losses.maxlen
+                        and iteration - self._last_problematic > 100):
+                    avg = float(torch.stack(list(recent_losses)).mean())
+                    if float(metrics["loss"]) > 1.5 * avg:
+                        problematic = True
+                        self._last_problematic = iteration
+                if (log_images_now or problematic) and self.writer is not None:
+                    if config.train_slim:
+                        # the slim step blends rgb only: render this frame's
+                        # depth and count grids on demand
+                        _, _, depth, count = self._eval_frame(state, item,
+                                                              sh_band)
+                        aux = dict(aux, depth=depth, count=count)
+                    self._log_images(item, metrics, aux, iteration,
+                                     problematic=problematic)
+
+                if ((iteration % config.val_interval == 0 and iteration != 0)
+                        or iteration in (5000, 7000)):
+                    state = self._validate(state, iteration)
+        finally:
+            data_iter.close()
+            if self._profiler is not None:
+                self._profiler.stop()
+                self._profiler = None
+        if self.writer is not None:
+            self.writer.flush()
+        self.scene = state.scene
+        return state
+
+    def _log_step(self, state, metrics, aux, iteration: int,
+                  t_start: float) -> None:
+        config = self.config
+        if iteration % config.log_loss_interval == 0:
+            loss_val = float(metrics["loss"])
+            l1 = float(metrics["l1"])
+            ssim_loss = 1.0 - float(metrics["ssim"])
+            self._scalar("train/loss", loss_val, iteration)
+            self._scalar("train/l1 loss", l1, iteration)
+            self._scalar("train/ssim loss", ssim_loss, iteration)
+            self._console(train_iteration=iteration, train_loss=loss_val,
+                          train_l1_loss=l1, train_ssim_loss=ssim_loss)
+        if iteration % config.log_metrics_interval == 0:
+            p = float(metrics["psnr"])
+            s = float(metrics["ssim"])
+            self._scalar("train/psnr", p, iteration)
+            self._scalar("train/ssim", s, iteration)
+            self._scalar("train/num_valid_points",
+                         int(state.scene.num_valid()), iteration)
+            self._log_histograms(state, aux, iteration)
+            self._scalar("train/steps_per_s",
+                         (iteration + 1) / (time.time() - t_start), iteration)
+            self._console(train_psnr=p, train_ssim=s,
+                          **{f"train_psnr_{iteration}": p,
+                             f"train_ssim_{iteration}": s})
+
+    def _profile_window(self, iteration: int) -> None:
+        """``enable_jax_profiler``: a torch.profiler trace (CPU, and CUDA on
+        a card) of the same window of iterations, written as a Chrome trace
+        to ``<summary_writer_log_dir>/torch_trace.json``."""
+        config = self.config
+        if not config.enable_jax_profiler:
+            return
+        if iteration == config.jax_profiler_start_iteration:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+        elif (self._profiler is not None
+              and iteration == config.jax_profiler_start_iteration
+              + config.jax_profiler_num_iterations):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            self._profiler.export_chrome_trace(os.path.join(
+                config.summary_writer_log_dir, "torch_trace.json"))
+            self._profiler = None
+
+    def _log_densify_scatter(self, info, aux, iteration: int) -> None:
+        """The points selected this round over the current prediction:
+        split (red), clone (green), removed (blue)."""
+        if self.writer is None:
+            return
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        uv = _np(aux["point_uv"])
+        if not uv.any():
+            return
+        in_cam = _np(aux["stats"].in_camera)
+        densify = _np(info.densify_mask) & in_cam
+        over = _np(info.over_mask)
+        remove = _np(info.remove_mask) & in_cam
+        pred = _np(aux["pred"])
+        h, w = pred.shape[:2]
+        fig, ax = plt.subplots(figsize=(6, 6 * h / max(w, 1)))
+        ax.imshow(np.clip(pred, 0, 1))
+        for mask, color, label in ((densify & over, "red", "split"),
+                                   (densify & ~over, "green", "clone"),
+                                   (remove, "blue", "remove")):
+            pts = uv[mask]
+            if len(pts):
+                ax.scatter(pts[:, 0], pts[:, 1], s=2, c=color, label=label)
+        ax.set_xlim(0, w)
+        ax.set_ylim(h, 0)
+        ax.legend(loc="upper right", fontsize=6)
+        self.writer.add_figure("densify/selection", fig, iteration)
+        plt.close(fig)
+
+    def _log_histograms(self, state, aux, iteration: int) -> None:
+        """Parameter and gradient histograms at the metrics cadence."""
+        if self.writer is None:
+            return
+        valid = ~_np(state.scene.invalid)
+        if valid.sum() == 0:
+            return
+        f = _np(state.scene.features)[valid]
+        self.writer.add_histogram("value/q", f[:, 0:4], iteration)
+        self.writer.add_histogram("value/s", f[:, 4:7], iteration)
+        self.writer.add_histogram("value/alpha", f[:, 7], iteration)
+        self.writer.add_histogram("value/sh_dc", f[:, [8, 24, 40]], iteration)
+        self.writer.add_histogram("value/xyz", _np(state.scene.xyz)[valid],
+                                  iteration)
+        stats = aux.get("stats")
+        if stats is not None:
+            mag = _np(stats.magnitude_grad_viewspace)[valid]
+            if np.isfinite(mag).all() and mag.size:
+                self.writer.add_histogram("grad/viewspace_magnitude", mag,
+                                          iteration)
+        gf = aux.get("grad_features")
+        if gf is not None:
+            g = _np(gf)[valid]
+            hi = np.concatenate([g[:, 9:24], g[:, 25:40], g[:, 41:56]], axis=1)
+            for tag, arr in (("grad/q", g[:, 0:4]), ("grad/s", g[:, 4:7]),
+                             ("grad/alpha", g[:, 7]),
+                             ("grad/sh_dc", g[:, [8, 24, 40]]),
+                             ("grad/sh_high_order", hi)):
+                if np.isfinite(arr).all() and arr.size:
+                    self.writer.add_histogram(tag, arr, iteration)
+        gx = aux.get("grad_xyz")
+        if gx is not None:
+            g = _np(gx)[valid]
+            if np.isfinite(g).all() and g.size:
+                self.writer.add_histogram("grad/xyz", g, iteration)
+
+    @staticmethod
+    def _easy_cmap(depth: np.ndarray) -> np.ndarray:
+        """Near/mid/far depth bands, inverted."""
+        return 1.0 - np.stack([
+            np.clip(depth, 0, 10) / 10.0,
+            np.clip(depth - 10, 0, 50) / 50.0,
+            np.clip(depth - 60, 0, 200) / 200.0,
+        ], axis=-1)
+
+    def _log_validation_image(self, item, pred, depth, count, idx: int,
+                              iteration: int) -> None:
+        """pred | gt / depth | count / |diff| grid under ``val/image idx``."""
+        pred = np.clip(_np(pred), 0, 1)
+        gt = np.asarray(item.image)
+        d_rgb = self._easy_cmap(_np(depth))
+        count = _np(count).astype(np.float32)
+        c_rgb = np.repeat((count / max(count.max(), 1.0))[..., None], 3,
+                          axis=-1)
+        diff = np.abs(pred - gt)
+        grid = np.concatenate([
+            np.concatenate([pred, gt], axis=1),
+            np.concatenate([d_rgb, c_rgb], axis=1),
+            np.concatenate([diff, np.zeros_like(diff)], axis=1),
+        ], axis=0)
+        self.writer.add_image(
+            f"val/image {idx}",
+            (grid.transpose(2, 0, 1) * 255).astype(np.uint8), iteration)
+
+    def _log_images(self, item, metrics, aux, iteration: int,
+                    problematic: bool = False) -> None:
+        """pred | gt / depth | point-count grid."""
+        pred = _np(aux["pred"])
+        d_rgb = self._easy_cmap(_np(aux["depth"]))
+        count = _np(aux["count"]).astype(np.float32)
+        c_rgb = np.repeat((count / max(count.max(), 1.0))[..., None], 3,
+                          axis=-1)
+        grid = np.concatenate([np.concatenate([pred, item.image], axis=1),
+                               np.concatenate([d_rgb, c_rgb], axis=1)],
+                              axis=0)
+        tag = "train/image_problematic" if problematic else "train/image"
+        self.writer.add_image(
+            tag, (grid.transpose(2, 0, 1) * 255).astype(np.uint8), iteration)
+
+    # -- validation -------------------------------------------------------------
+
+    def _validate(self, state: TrainState, iteration: int) -> TrainState:
+        """Render every val view; log the mean loss, PSNR and SSIM; write
+        ``scene_{iteration}``, ``checkpoint_latest`` and, on a new best
+        PSNR, ``best_scene``."""
+        config = self.config
+        sh_band = min(iteration // config.increase_color_max_sh_band_interval,
+                      3)
+        totals = collections.defaultdict(float)
+        frame_times = []
+        n = 0
+        for item in PrefetchLoader(self.val_dataset, shuffle=False,
+                                   loop=False,
+                                   num_threads=config.num_data_threads):
+            t0 = time.time()
+            metrics, pred, depth, count = self._eval_frame(state, item,
+                                                           sh_band)
+            values = {k: float(metrics[k])
+                      for k in ("loss", "l1", "psnr", "ssim_score")}
+            frame_times.append(time.time() - t0)
+            for k, v in values.items():
+                totals[k] += v
+            if config.log_validation_image and self.writer is not None:
+                self._log_validation_image(item, pred, depth, count,
+                                           item.index, iteration)
+            n += 1
+        if n == 0:
+            return state
+        mean_psnr = totals["psnr"] / n
+        mean_ssim = totals["ssim_score"] / n
+        self._scalar("val/loss", totals["loss"] / n, iteration)
+        self._scalar("val/psnr", mean_psnr, iteration)
+        self._scalar("val/ssim", mean_ssim, iteration)
+        # the median leaves out the first frame's one-time costs
+        self._scalar("val/inference_time", float(np.median(frame_times)),
+                     iteration)
+        self._console(val_loss=totals["loss"] / n, val_psnr=mean_psnr,
+                      val_ssim=mean_ssim,
+                      **{f"val_psnr_{iteration}": mean_psnr,
+                         f"val_ssim_{iteration}": mean_ssim})
+
+        self._save_scene(state.scene, os.path.join(
+            self.output_model_dir, f"scene_{iteration}.parquet"))
+        if config.save_full_checkpoint:
+            from taichi_3d_gaussian_splatting_tpu_torch.training.checkpoint import (  # noqa: E501
+                save_checkpoint,
+            )
+
+            save_checkpoint(
+                os.path.join(self.output_model_dir, "checkpoint_latest"),
+                state,
+                {"iteration": iteration, "best_psnr": self.best_psnr_score,
+                 "rng_state": self.generator.get_state().tolist()})
+        if mean_psnr > self.best_psnr_score:
+            self.best_psnr_score = mean_psnr
+            self._save_scene(state.scene, os.path.join(
+                self.output_model_dir, "best_scene.parquet"))
+        return state

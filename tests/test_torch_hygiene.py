@@ -1,11 +1,14 @@
 """Rules of the port that no parity test covers: it never imports JAX or
-the JAX package, it imports without CUDA (and without PyYAML), gradients
+the JAX package, it imports without CUDA (and without PyYAML, PIL, pandas
+or tensorboardX), gradients
 flow through its rasterizer, the options it has not ported raise, and its
 kernel wrappers reject malformed tensors and never launch on the CPU."""
 import ast
+import dataclasses
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -98,6 +101,52 @@ def test_config_imports_without_yaml():
     assert r.stdout.strip() == "load_config needs yaml"
 
 
+def test_loop_imports_without_optional_packages():
+    """The card's machine may lack PIL, pandas, PyYAML and tensorboardX:
+    the dataset, the trainer and the train CLI import without them (each is
+    imported where it is used), and the trainer then has no writer."""
+    code = (
+        "import sys\n"
+        "for m in ('PIL', 'pandas', 'yaml', 'tensorboardX'):\n"
+        "    sys.modules[m] = None  # an import of it now fails\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.data import dataset\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.training import "
+        "trainer\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.apps import train\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.training.config import "
+        "TrainConfig\n"
+        "class T(trainer.GaussianPointCloudTrainer):\n"
+        "    def _load_datasets(self):\n"
+        "        return [], []\n"
+        "    def _load_scene(self):\n"
+        "        return None\n"
+        "t = T(TrainConfig(summary_writer_log_dir=sys.argv[1]), 'cpu')\n"
+        "assert t.writer is None\n"
+        "print('imported')\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([sys.executable, "-c", code, tmp], cwd=ROOT,
+                           env={"PATH": "/usr/bin:/bin",
+                                "PYTHONPATH": str(ROOT)},
+                           capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "imported"
+
+
+@pytest.mark.parametrize("over, match", [
+    ({"pose_refinement": True}, "poses slice"),
+    ({"multihost": True}, "multi-device slice"),
+    ({"data_parallel_devices": 2}, "multi-device slice"),
+    ({"tile_parallel_devices": 2}, "multi-device slice"),
+    ({"steps_per_dispatch": 4}, "steps_per_dispatch"),
+])
+def test_trainer_refuses_unported_options(over, match, tmp_path):
+    config = dataclasses.replace(
+        TrainConfig(summary_writer_log_dir=str(tmp_path)), **over)
+    with pytest.raises(NotImplementedError, match=match):
+        trainer.GaussianPointCloudTrainer(config, device="cpu")
+    assert list(tmp_path.iterdir()) == []  # refused before anything ran
+
+
 def _scene_tensors():
     xyz, feats, invalid = make_scene(50, seed=2)
     return [torch.from_numpy(a) for a in (xyz, feats, invalid, Q_ID, T_ID)]
@@ -151,6 +200,10 @@ def _call_histogram(ids):
     return histogram.bucket_histogram(ids, 4)
 
 
+def _call_tile_ranges(fused):
+    return histogram.tile_ranges(fused, 20, 4)
+
+
 def _call_expand(offsets):
     z = _i32(3)
     return expand.expand_keys(offsets, z, z, z, z, torch.zeros(10, 3),
@@ -176,6 +229,7 @@ def _call_segment_reduce(rows):
 
 @pytest.mark.parametrize("call, good", [
     (_call_histogram, _i32(8)),
+    (_call_tile_ranges, _i32(8)),
     (_call_expand, _i32(3)),
     (_call_blend, torch.zeros(16, 8)),
     (_call_blend_backward, torch.zeros(4, 1024, 3)),
@@ -203,9 +257,9 @@ def test_wrappers_check_shapes():
         sr.segment_reduce(torch.zeros(12, 8), _i32(3), _i32(4))
 
 
-COUNTERS = (histogram.bucket_histogram, expand.slot_keys,
-            expand.sorted_table, blend.blend_forward, blend.blend_backward,
-            sr.segment_reduce, sr.segment_reduce_sorted)
+COUNTERS = (histogram.bucket_histogram, histogram.tile_ranges,
+            expand.slot_keys, expand.sorted_table, blend.blend_forward,
+            blend.blend_backward, sr.segment_reduce, sr.segment_reduce_sorted)
 
 
 def test_wrappers_on_cpu_never_launch():

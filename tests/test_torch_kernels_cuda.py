@@ -7,8 +7,8 @@ so it runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Tolerances: the key expansion (slot_keys, sorted_table), bucket_histogram
-and segment_reduce must match bit for bit (integer and copy kernels, and
+Tolerances: the key expansion (slot_keys, sorted_table), bucket_histogram,
+tile_ranges and segment_reduce must match bit for bit (integer and copy kernels, and
 segment sums added in slot order like their plain versions); the sorted
 table also equals the pre-sort table gathered by the sort's permutation,
 and the segment sum through the inverse permutation equals the first
@@ -94,6 +94,46 @@ def test_histogram_matches_plain(dev):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case, num_tiles", [
+    ("empty", 510), ("all_sentinel", 510), ("one_tile", 4),
+    ("one_tile", 510), ("random", 4), ("random", 510), ("random", 20_000),
+    ("frame", 4)])
+def test_tile_ranges_matches_plain(dev, case, num_tiles):
+    """K2 on the main path: equal to its plain version, to
+    torch.searchsorted and to the exclusive cumsum of bucket_histogram."""
+    dbits = tiling._depth_bits(num_tiles)
+    sentinel = ((num_tiles + 1) << dbits) - 1
+    rng = np.random.default_rng(num_tiles)
+    if case == "frame":
+        cfg, cam, raw, radius, invalid, _ = _frame(dev, n=2000,
+                                                   scale_shift=1.0)
+        keys, _, _ = R.build_keys(raw, radius, invalid, cam, cfg)
+        fused = keys.fused  # a 64x64 frame of 32x32 tiles: num_tiles 4
+    else:
+        n = {"empty": 0, "all_sentinel": 300, "one_tile": 700,
+             "random": 100_000}[case]
+        tids = {"all_sentinel": np.full(n, num_tiles),
+                "one_tile": np.full(n, num_tiles // 2)}.get(
+                    case, rng.integers(0, num_tiles + 1, n))
+        keys_np = (tids.astype(np.int64) << dbits) | rng.integers(
+            0, 1 << dbits, n)
+        keys_np = np.minimum(keys_np, sentinel)
+        fused = torch.from_numpy(np.sort(keys_np).astype(np.int32)).to(dev)
+    before = histogram.tile_ranges.launches
+    got = histogram.tile_ranges(fused, dbits, num_tiles)
+    assert histogram.tile_ranges.launches == before + 1
+    want = histogram.tile_ranges_plain(fused, dbits, num_tiles)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    tid = (fused >> dbits).contiguous()
+    torch.testing.assert_close(
+        got.long(), torch.searchsorted(tid, torch.arange(
+            num_tiles + 1, dtype=torch.int32, device=dev)), rtol=0, atol=0)
+    hist = histogram.bucket_histogram(tid, num_tiles)
+    torch.testing.assert_close(got[1:], torch.cumsum(hist, 0).int(), rtol=0,
+                               atol=0)
+    assert int(got[0]) == 0
+
+
 @pytest.mark.parametrize("exact_cull", [False, True])
 def test_expand_matches_plain(dev, exact_cull):
     cfg, cam, raw, radius, invalid, _ = _frame(dev)
@@ -173,12 +213,13 @@ def test_blend_matches_plain(dev, tile, rgb_only, dense):
 
 def test_rasterize_launches_every_kernel(dev):
     cfg, cam, _, _, _, (xyz, feats, invalid) = _frame(dev)
-    counters = (expand.slot_keys, expand.sorted_table,
-                histogram.bucket_histogram, blend.blend_forward)
+    counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
+                blend.blend_forward, histogram.bucket_histogram)
     before = [f.launches for f in counters]
     out = R.rasterize(xyz, feats, invalid, torch.from_numpy(Q_ID).to(dev),
                       torch.from_numpy(T_ID).to(dev), cam, cfg)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1] * 4
+    assert [f.launches - b
+            for f, b in zip(counters, before)] == [1] * 4 + [0]
     assert out.rgb.shape == (64, 64, 3) and out.rgb.is_cuda
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
 
@@ -289,16 +330,16 @@ def test_train_step_launches_every_kernel(dev):
     step = trainer.make_train_step(config, 64, 64, device=dev)
     gt = torch.from_numpy((np.random.default_rng(1).random((64, 64, 3))
                            * 255).astype(np.uint8)).to(dev)
-    counters = (expand.slot_keys, expand.sorted_table,
-                histogram.bucket_histogram, blend.blend_forward,
-                blend.blend_backward, sr.segment_reduce_sorted,
-                sr.segment_reduce)
+    counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
+                blend.blend_forward, blend.blend_backward,
+                sr.segment_reduce_sorted, sr.segment_reduce,
+                histogram.bucket_histogram)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 6 + [0]
+            for f, b in zip(counters, before)] == [1] * 6 + [0, 0]
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
