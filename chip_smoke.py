@@ -19,8 +19,10 @@ yardstick of their redesign), then:
    design's keys and its pre-sort table gathered by the permutation;
    blend_forward within 1e-4 (rgb, alpha) and 5e-4 (depth), with the count
    exact at the small size and differing on under 0.01% of the full-width
-   pixels (the plain version's parallel cumprod may flip a pixel sitting
-   on the 1e-4 stop);
+   pixels (the gate as it was set; on an H100 80GB HBM3 the kernel and its
+   plain version agree on every full-width pixel, and a float64
+   sequential blend differs from both on 1 of the 522,240: f32 rounding
+   at a threshold, a fault of neither side);
 2. renders 9 full-width frames through ``apps/render.py``'s
    GaussianPointRenderer (the user's entry point; the scene goes through a
    .ply file), with every kernel's launch count set to 0 before and read
@@ -43,7 +45,9 @@ yardstick of their redesign), then:
    at both sizes, with a seeded image cotangent and the forward's own rgb:
    blend_backward's rows within 5e-4 + 1e-3 |plain| (the JAX package's
    gradient gate), its count exact at 64x64 and differing on under 0.01%
-   of the full-width keys, its |grad_uv| image within 1e-4, and two runs
+   of the full-width keys (as K3's: on an H100 the two agree on every key,
+   and the float64 blend differs from both on 1 of 433,512), its |grad_uv|
+   image within 1e-4, and two runs
    bit-identical; segment_reduce (through the inverse key permutation) bit
    for bit against its plain version and the first design's regroup +
    kernel;
@@ -68,7 +72,38 @@ yardstick of their redesign), then:
    whole train() window an iteration, the plain iterations at each size against phase 4's step, a densify round,
    a validation frame and the checkpoint save, prints num_valid around
    each round, and resumes a fresh trainer from ``checkpoint_latest``,
-   holding its state equal to the state that was saved.
+   holding its state equal to the state that was saved;
+6. trains with pose refinement through make_train_step (pose_refinement,
+   pose_refinement_warm_up 2) on the phase-4 scene: 3 views whose targets
+   are rendered at ``poses(3)`` and whose poses are perturbed by a seeded
+   rotation (up to 0.01 rad an axis) and shift (up to 2 cm); 3 warm-up
+   steps (the first 2 with view index -1) and 20 timed ones. Checks every
+   kernel once a timed step, the loss, the pose cotangents and deltas
+   finite, the deltas zero through the warm-up and moving after it, and
+   one step's se(3) pose cotangent against the plain route's (every
+   kernel wrapper swapped for its plain version, ``plain_route``) within
+   1e-3 of its norm; times the step and its device share;
+7. serves ``apps/visualizer.py``'s viewer at 992x544 over two objects (the
+   phase-4 scene and a seeded one of 200,000 points, as .ply files) on a
+   free port, posts 10 events (select, move, spin, hide, show, camera
+   moves) and reads a frame after each (JPEG from /frame, or through
+   ``render_frame`` where PIL is missing). Checks the frames change with
+   the events, K1-K3 once a frame, a frame with distinct object poses
+   against the plain route (rgb 1e-4) and one with equal poses bit for bit
+   against the single-pose render; prints the median frame latency;
+8. renders from a dataset .json (``render.poses_from_dataset``, three
+   960x544 PNG views, or items served from memory where PIL is missing)
+   with rgb_only and pack_sort_colors: K1-K3 once a frame, the table's r
+   and g rows equal to round_bf16 of the unpacked rows and the rest equal,
+   K3 on the packed table against the plain blend (rgb 1e-4);
+9. runs ``tools/ftgmm.ft_grab_scene`` once on the loop's final scene:
+   finite metrics, and its time.
+
+Each path's launch counts are set to 0 just before it and read just after.
+In phases 1 and 1b a float64 sequential front-to-back blend of every
+tile's sorted keys (``f64_counts``) gives each pixel's and each key's
+count; ``count_check`` in the record says on how many the kernel (K3's
+per-pixel, K4's per-key count) and its plain version differ from it.
 
 The scene is a seeded copy of bench.py's surround scene (random weights).
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -188,6 +223,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def zero_launches(kernels) -> None:
+    """Set every kernel's launch count to 0."""
+    for f in kernels.values():
+        f.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    """{name: launch count} of the kernels."""
+    return {name: f.launches for name, f in kernels.items()}
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -575,6 +621,86 @@ def device_busy(fn, reps: int, expect: tuple) -> dict:
             "top_kernels_ms_per_frame": dict(top)}
 
 
+# --- the count check: which side a float64 sequential blend agrees with ----
+
+# the kernels' f32 thresholds, as float64 numbers
+ALPHA_SKIP_F32 = float(np.float32(1.0) / np.float32(255.0))
+ALPHA_CLAMP_F32 = float(np.float32(0.99))
+T_SAT_F32 = float(np.float32(1e-4))
+# per label: how many pixels (K3) or keys (K4) have a count other than the
+# float64 blend's, for the kernel and for its plain version
+COUNT_CHECK = {}
+
+
+def f64_counts(frame: Frame):
+    """A float64 sequential front-to-back blend of every tile's sorted keys
+    (``frame.table``'s rows u, v, conic a, b, c, logro), key by key, every
+    tile and pixel at once, with the kernels' thresholds (skip alpha <
+    1/255, clamp at 0.99, stop where T (1 - a) < 1e-4): (count of keys each
+    pixel blends (tiles, px), count of pixels that blend each key (cap,)).
+    The stopping key is not blended, as in the kernels."""
+    k = frame.keys
+    dev = frame.table.device
+    tw, th = frame.tile
+    i = torch.arange(tw * th, device=dev)
+    x = ((i % tw).double() + 0.5)[None, :]
+    y = (torch.div(i, tw, rounding_mode="floor").double() + 0.5)[None, :]
+    start = k.tile_start.long()
+    n = torch.clamp_min(k.tile_end.long() - start, 0)
+    cap = frame.table.shape[1]
+    tab = frame.table[0:6].double()
+    shape = (frame.num_tiles, tw * th)
+    T = torch.ones(shape, dtype=torch.float64, device=dev)
+    live = torch.ones(shape, dtype=torch.bool, device=dev)
+    count = torch.zeros(shape, dtype=torch.int64, device=dev)
+    per_key = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    for j in range(int(n.max()) if frame.num_tiles else 0):
+        if j % 64 == 0 and not bool((live & (n[:, None] > j)).any()):
+            break
+        has = n > j
+        col = torch.where(has, start + j, cap)
+        u, v, ca, cb, cc, lr = tab[:, torch.clamp_max(col, cap - 1)][:, :,
+                                                                      None]
+        dx, dy = x - u, y - v
+        alpha = torch.exp(-0.5 * (ca * dx * dx + cc * dy * dy)
+                          - cb * dx * dy + lr)
+        hit = live & has[:, None] & (alpha >= ALPHA_SKIP_F32)
+        nxt = T * (1.0 - torch.clamp_max(alpha, ALPHA_CLAMP_F32))
+        stop = hit & (nxt < T_SAT_F32)
+        inc = hit & ~stop
+        live &= ~stop
+        T = torch.where(inc, nxt, T)
+        count += inc
+        per_key[col] = inc.sum(1)
+    return count, per_key[:cap]
+
+
+def frame_f64_counts(frame: Frame):
+    """``f64_counts`` of the frame, computed once."""
+    if not hasattr(frame, "f64"):
+        frame.f64 = f64_counts(frame)
+    return frame.f64
+
+
+def count_check(label: str, what: str, kernel, plain, exact) -> dict:
+    """How many of the entries have a kernel or plain count other than
+    the float64 blend's (``exact``), and the first ten such entries as
+    (flat index, kernel, plain, float64); printed and kept in
+    COUNT_CHECK."""
+    kernel, plain, exact = (a.reshape(-1) for a in (kernel, plain, exact))
+    odd = torch.nonzero((kernel != exact) | (plain != exact)).flatten()[:10]
+    out = {"entries": int(exact.numel()),
+           "kernel_differs_from_f64": int((kernel != exact).sum()),
+           "plain_differs_from_f64": int((plain != exact).sum()),
+           "kernel_differs_from_plain": int((kernel != plain).sum()),
+           "first": [[int(i), int(kernel[i]), int(plain[i]), int(exact[i])]
+                     for i in odd.tolist()]}
+    print(f"  {label} {what} count check against a float64 sequential "
+          f"blend: {out}", flush=True)
+    COUNT_CHECK[f"{label} {what}"] = out
+    return out
+
+
 # --- phase 1: kernels against their plain versions ------------------------
 
 def check_expand(frame: Frame, label: str, first) -> float:
@@ -671,6 +797,9 @@ def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
         print(f"  {label} blend rgb_only={rgb_only}: max|d rgb| {e_rgb:.3g} "
               f"max|d alpha| {e_alpha:.3g} max|d depth| {e_depth:.3g} "
               f"count differs at {n_count} of {got.shape[0] * got.shape[1]} px")
+        if not rgb_only:
+            count_check(label, "K3 per-pixel", got[..., 5].long(),
+                        want[..., 5].long(), frame_f64_counts(frame)[0])
         if e_rgb > 1e-4 or e_alpha > 1e-4 or e_depth > 5e-4:
             raise AssertionError(f"{label}: blend_forward outside tolerance")
         limit = 1e-4 * got.shape[0] * got.shape[1] if full_width else 0
@@ -718,6 +847,8 @@ def check_backward_kernels(frame: Frame, label: str, full_width: bool,
     live = slice(0, frame.live_keys)
     count_diff = got[11, live] != want[11, live]
     n_count = int(count_diff.sum())
+    count_check(label, "K4 per-key", got[11, live].long(),
+                want[11, live].long(), frame_f64_counts(frame)[1][live])
     rows = [0, 1, 2, 3, 4, 5, 6, 7, 8, 10]
     same = ~count_diff
     excess = ((got[rows] - want[rows]).abs()
@@ -921,8 +1052,7 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
     for _ in range(3):
         one_step()
     torch.cuda.synchronize()
-    for f in kernels.values():
-        f.launches = 0
+    zero_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     steps = 20
     start = torch.cuda.Event(enable_timing=True)
@@ -934,7 +1064,7 @@ def run_training(xyz, feats, camera, cfg_kw, kernels) -> dict:
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
-    launches = {name: f.launches for name, f in kernels.items()}
+    launches = read_launches(kernels)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     loss_list = [float(v) for v in losses]
     print(f"  {steps} timed steps: {step_ms:.3f} ms/step; losses "
@@ -1135,9 +1265,10 @@ def timed_calls(obj, name: str, sink: dict):
     return fn
 
 
-def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda") -> dict:
+def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda"):
     """Phase 5: ``GaussianPointCloudTrainer.train()`` at full width, then a
-    resume from its checkpoint. Returns the loop's record."""
+    resume from its checkpoint. Returns the loop's record and its final
+    scene."""
     from taichi_3d_gaussian_splatting_tpu_torch.training import checkpoint
     from taichi_3d_gaussian_splatting_tpu_torch.training import (
         trainer as trainer_mod,
@@ -1208,8 +1339,7 @@ def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda") -> dict:
         timed_calls(trainer, name, host)
     downsample = timed_calls(trainer_mod, "downsample_item", host)
     checkpoint.save_checkpoint = timed_save
-    for f in kernels.values():
-        f.launches = 0
+    zero_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -1223,7 +1353,7 @@ def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda") -> dict:
     # the end-to-end figure: the whole train() window over its iterations
     # (densify, resets, validation, exports and start-up included)
     loop_ms = train_s * 1e3 / max(len(marks), 1)
-    launches = {name: f.launches for name, f in kernels.items()}
+    launches = read_launches(kernels)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     loss_list = [float(v) for v in losses]
 
@@ -1329,7 +1459,473 @@ def run_loop(xyz, feats, K_np, step_ms: float, kernels, dev="cuda") -> dict:
         "loop_losses": loss_list, "loop_launches": launches,
         "loop_plain_calls": plain, "loop_first_design_calls": off_path,
         "loop_peak_mem_gib": peak_gib, "loop_scene_files": saved_as,
-    }
+    }, state.scene
+
+
+# --- phases 6-8: the plain route ---------------------------------------------
+
+@contextlib.contextmanager
+def plain_route():
+    """While open, every kernel wrapper of the main path is replaced by its
+    plain version, so a call through the entry points runs the plain
+    versions on the card's tensors (the comparisons of phases 6-8). No
+    launch counter moves."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import (
+        blend, expand, histogram, segment_reduce as sr,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    swaps = [(expand, "slot_keys", expand.slot_keys_plain),
+             (expand, "sorted_table", expand.sorted_table_plain),
+             (histogram, "tile_ranges", histogram.tile_ranges_plain),
+             (blend, "blend_forward", blend.blend_forward_plain),
+             (blend, "blend_backward", blend.blend_backward_plain),
+             (R, "segment_reduce_sorted", sr.segment_reduce_sorted_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+# --- phase 6: the pose-refining train step -----------------------------------
+
+POSE_WARM = 2     # pose_refinement_warm_up: steps whose view index is -1
+POSE_VIEWS = 3
+
+
+def pose_views(K_np, xyz, feats, dev):
+    """POSE_VIEWS views of the phase-4 scene: uint8 targets rendered at the
+    poses of ``poses()`` from the scene with seeded noise (sigma 0.3) on its
+    DC colours, as phase 4's, and each view's pose perturbed by a seeded
+    rotation of up to 0.01 rad about each axis and a shift of up to 2 cm
+    (what the refinement is to undo). Returns [(gt, q, t)], the perturbed
+    poses."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+        quaternion_exp, quaternion_multiply, se3_to_qt,
+    )
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    rng = np.random.default_rng(11)
+    n = xyz.shape[0]
+    feats_gt = feats.copy()
+    feats_gt[:, [8, 24, 40]] += rng.normal(0.0, 0.3, (n, 3)).astype(
+        np.float32)
+    qs, ts = se3_to_qt(put(poses(POSE_VIEWS)))
+    cam = R.Camera(put(K_np), WIDTH, HEIGHT)
+    cfg = R.RasterizerConfig(rgb_only=True, tile_size=TILE)
+    x, f = put(xyz), put(feats_gt)
+    invalid = torch.zeros(n, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(17)
+    views = []
+    for i in range(POSE_VIEWS):
+        rgb = R.rasterize(x, f, invalid, qs[i], ts[i], cam, cfg).rgb
+        gt = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255).to(torch.uint8)
+        w = put(rng.uniform(-0.01, 0.01, 3).astype(np.float32))
+        dt = put(rng.uniform(-0.02, 0.02, 3).astype(np.float32))
+        views.append((gt, quaternion_multiply(qs[i], quaternion_exp(w)),
+                      ts[i] + dt))
+    return views
+
+
+def run_pose_training(xyz, feats, K_np, step_ms: float, kernels,
+                      dev="cuda") -> dict:
+    """Phase 6: make_train_step with pose_refinement on the phase-4 scene,
+    POSE_VIEWS views with perturbed poses in turn: 3 warm-up steps (the
+    first POSE_WARM with view index -1) and 20 timed ones with the launch
+    counts read around them; then one step's pose cotangent against the
+    plain route's on the same state and inputs."""
+    from taichi_3d_gaussian_splatting_tpu_torch.convert import (
+        train_state_from_jax,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        TrainConfig,
+    )
+
+    dev = torch.device(dev)
+    n = xyz.shape[0]
+    config = TrainConfig(
+        rasterisation_config=R.RasterizerConfig(tile_size=TILE),
+        pose_refinement=True, pose_refinement_warm_up=POSE_WARM)
+    zeros = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+
+    def adam(p):
+        return {"mu": np.zeros_like(p), "nu": np.zeros_like(p), "count": 0}
+    state = train_state_from_jax(
+        {"xyz": xyz, "features": feats, "invalid": np.zeros((n,), bool),
+         "object_id": np.zeros((n,), np.int32)}, adam(feats), adam(xyz),
+        {f: zeros(n, 3) if f == "grad_position" else zeros(n)
+         for f in ("num_pixels", "num_in_camera", "grad_viewspace",
+                   "grad_viewspace_avg", "grad_position",
+                   "grad_position_norm")},
+        pose_deltas=zeros(POSE_VIEWS, 6),
+        pose_opt={"mu": zeros(POSE_VIEWS, 6), "nu": zeros(POSE_VIEWS, 6),
+                  "count": zeros(POSE_VIEWS)}, device=dev)
+    views = pose_views(K_np, xyz, feats, dev)
+    K = torch.from_numpy(K_np).to(dev)
+    step = trainer.make_train_step(config, HEIGHT, WIDTH, device=dev)
+    it = {"i": 0}
+    losses, finite = [], []
+
+    def one_step():
+        nonlocal state
+        i = it["i"]
+        it["i"] += 1
+        gt, q, t = views[i % POSE_VIEWS]
+        idx = -1 if i < POSE_WARM else i % POSE_VIEWS
+        state, metrics, aux = step(state, gt, q, t, K, 3, idx)
+        losses.append(metrics["loss"])
+        checks = [metrics["loss"], state.pose_deltas]
+        if idx >= 0:
+            checks += [aux["grad_q"], aux["grad_t"], aux["grad_pose"]]
+        finite.append(torch.stack([torch.isfinite(c).all() for c in checks])
+                      .all())
+        return aux
+
+    warm_deltas = []
+    for _ in range(3):
+        one_step()
+        warm_deltas.append(float(state.pose_deltas.abs().max()))
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    steps = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        one_step()
+    end.record()
+    torch.cuda.synchronize()
+    pose_ms = start.elapsed_time(end) / steps
+    launches = read_launches(kernels)
+    loss_list = [float(v) for v in losses]
+    deltas = state.pose_deltas.cpu().numpy()
+    print(f"  {steps} timed pose-refining steps: {pose_ms:.3f} ms/step "
+          f"(phase 4's step {step_ms:.3f} ms); losses {loss_list[0]:.6f} "
+          f"(first) -> {loss_list[-1]:.6f} (last); launches {launches}; "
+          f"max |pose delta| after each warm-up step {warm_deltas}; "
+          f"pose deltas {deltas.round(6).tolist()}; Adam counts "
+          f"{state.pose_opt['count'].tolist()}", flush=True)
+    if not all(bool(v) for v in finite):
+        raise AssertionError("a non-finite loss, pose gradient or delta")
+    if warm_deltas[:POSE_WARM] != [0.0] * POSE_WARM or warm_deltas[-1] == 0:
+        raise AssertionError(f"the pose deltas moved during the warm-up or "
+                             f"not after it: {warm_deltas}")
+    for name, n_ in launches.items():
+        if n_ != steps:
+            raise AssertionError(f"{name}: {n_} launches in {steps} "
+                                 f"pose-refining steps")
+
+    # one step's pose cotangent, kernels against the plain route
+    gt, q, t = views[0]
+    saved = state
+    aux_k = step(saved, gt, q, t, K, 3, 0)[2]
+    with plain_route():
+        aux_p = step(saved, gt, q, t, K, 3, 0)[2]
+    torch.cuda.synchronize()
+    got, want = aux_k["grad_pose"].double(), aux_p["grad_pose"].double()
+    rel = float((got - want).norm() / want.norm())
+    print(f"  pose cotangent (se(3) 6-vector) kernels {got.tolist()}, plain "
+          f"{want.tolist()}: |d| / |plain| = {rel:.3g} (gate 1e-3)",
+          flush=True)
+    if not rel <= 1e-3:
+        raise AssertionError(f"the pose cotangent differs from the plain "
+                             f"route's: {rel:.3g} of its norm")
+    def view_step():
+        # one view, so that every call launches the same kernels (the
+        # elementwise kernels' vector width follows each view's key total)
+        nonlocal saved
+        saved = step(saved, gt, q, t, K, 3, 0)[0]
+    busy = device_busy(view_step, reps=5,
+                       expect=("blend_backward_kernel(",
+                               "segment_reduce_kernel("))
+    print(f"  pose-refining step profiler (view 0): {busy}", flush=True)
+    return {"pose_ms_per_step": pose_ms, "pose_phase4_step_ms": step_ms,
+            "pose_steps_timed": steps, "pose_losses": loss_list,
+            "pose_launches": launches,
+            "pose_warm_up_max_delta": warm_deltas,
+            "pose_deltas": deltas.tolist(),
+            "pose_cotangent_rel_err": rel,
+            "pose_cotangent": got.tolist(),
+            "pose_device_ms_per_step": busy["device_busy_ms"] / 5,
+            "pose_profile": busy}
+
+
+# --- phase 7: the viewer -----------------------------------------------------
+
+VIEWER_SECOND_POINTS = 200_000
+VIEWER_EVENTS = [{"key": "1"}, {"key": "w"}, {"key": "d"},
+                 {"dx": 0.05, "dy": 0.02}, {"key": "h"}, {"key": "p"},
+                 {"key": "0"}, {"key": "s"}, {"key": "a"},
+                 {"dx": -0.03, "dy": 0.04}]
+
+
+def run_viewer(xyz, feats, kernels, tmp: Path, dev="cuda") -> dict:
+    """Phase 7: ``apps/visualizer.py``'s viewer at its default 992x544 over
+    two scenes (the phase-4 scene and a seeded one of 200,000 points, as
+    .ply files), its HTTP server on a free port, VIEWER_EVENTS posted to
+    /event with a frame read after each (from /frame as JPEG, or through
+    ``render_frame`` where PIL is missing), the launch counts read around
+    the session; then the per-object frame against the single-pose render
+    (equal poses) and against the plain route (distinct poses)."""
+    import importlib.util
+    import urllib.request
+
+    from taichi_3d_gaussian_splatting_tpu_torch.apps import visualizer as V
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    paths = []
+    for name, (x, f) in (("a", (xyz, feats)), ("b", truck_scene_surround(
+            VIEWER_SECOND_POINTS, seed=2))):
+        path = str(tmp / f"{name}.ply")
+        scene_lib.to_ply(scene_lib.create_scene(x, scene_lib.SceneConfig(),
+                                                features=f, device="cpu"),
+                         path)
+        paths.append(path)
+    vis = V.GaussianPointVisualizer(V.VisualizerConfig(parquet_paths=paths),
+                                    device=dev)
+    has_pil = importlib.util.find_spec("PIL") is not None
+    if not has_pil:
+        print("  no PIL on this machine: frames are read through the "
+              "viewer's render_frame, not as JPEG from /frame", flush=True)
+    server = V.make_server(vis, 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if has_pil:
+            data = urllib.request.urlopen(url + "/frame", timeout=120).read()
+        else:
+            data = vis.render_frame().cpu().numpy().tobytes()
+        return data, (time.perf_counter() - t0) * 1e3
+
+    try:
+        frame()  # warm-up
+        zero_launches(kernels)
+        frames, ms_ = [], []
+        for ev in [None] + VIEWER_EVENTS:
+            if ev is not None:
+                req = urllib.request.Request(
+                    url + "/event", data=json.dumps(ev).encode(),
+                    method="POST")
+                if urllib.request.urlopen(req, timeout=30).status != 204:
+                    raise AssertionError(f"/event refused {ev}")
+            data, t_ms = frame()
+            frames.append(data)
+            ms_.append(t_ms)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the viewer's server thread did not stop")
+    n_frames = len(frames)
+    render_ms = [synced_ms(vis.render_frame)[1] for _ in range(10)]
+    changed = [frames[i] != frames[i - 1] for i in range(1, n_frames)]
+    print(f"  {n_frames} frames over HTTP ({'JPEG' if has_pil else 'raw'}), "
+          f"ms each {[round(v, 2) for v in ms_]}, median "
+          f"{float(np.median(ms_)):.2f} ms; render_frame median "
+          f"{float(np.median(render_ms)):.2f} ms; frame changed after "
+          f"{[ev for ev, c in zip(VIEWER_EVENTS, changed) if c]}; launches "
+          f"{launches}", flush=True)
+    # selecting an object changes nothing on screen; every other event does,
+    # and showing restores the frame before the hide
+    for ev, c in zip(VIEWER_EVENTS, changed):
+        if c != ("key" not in ev or not ev["key"].isdigit()):
+            raise AssertionError(f"frame {'changed' if c else 'unchanged'} "
+                                 f"after {ev}")
+    hide = VIEWER_EVENTS.index({"key": "h"}) + 1
+    if frames[hide + 1] != frames[hide - 1]:
+        raise AssertionError("hide then show did not restore the frame")
+    want = {"slot_keys": n_frames, "sorted_table": n_frames,
+            "tile_ranges": n_frames, "blend_forward": n_frames,
+            "blend_backward": 0, "segment_reduce_sorted": 0}
+    if launches != want:
+        raise AssertionError(f"viewer launches {launches}, expected {want}")
+
+    # distinct per-object poses (object 1 moved and spun): kernels against
+    # the plain route
+    if np.allclose(vis.q[0], vis.q[1]) and np.allclose(vis.t[0], vis.t[1]):
+        raise AssertionError("the events left the object poses equal")
+    got = vis.render_frame()
+    with plain_route():
+        plain = vis.render_frame()
+    torch.cuda.synchronize()
+    e_rgb = max_abs(got, plain)
+    # equal poses: the per-object frame is the single-pose render
+    vis.q[:] = vis.q[0]
+    vis.t[:] = vis.t[0]
+    s = vis.scene
+    single = torch.clamp(R.rasterize(
+        s.xyz, s.features, s.invalid, torch.from_numpy(vis.q[0]).to(dev),
+        torch.from_numpy(vis.t[0]).to(dev), vis.camera, vis.rcfg,
+        point_object_id=s.object_id).rgb, 0.0, 1.0)
+    same = bool(torch.equal(vis.render_frame(), single))
+    print(f"  distinct object poses: max|d rgb| against the plain route "
+          f"{e_rgb:.3g} (gate 1e-4); equal poses bit-identical to the "
+          f"single-pose render: {same}", flush=True)
+    if e_rgb > 1e-4 or not same:
+        raise AssertionError("viewer frame outside its gates")
+    return {"viewer_frames": n_frames, "viewer_jpeg": has_pil,
+            "viewer_frame_ms": ms_,
+            "viewer_frame_ms_median": float(np.median(ms_)),
+            "viewer_render_ms_median": float(np.median(render_ms)),
+            "viewer_points": s.capacity, "viewer_image": [vis.width,
+                                                          vis.height],
+            "viewer_launches": launches, "viewer_plain_rgb_err": e_rgb}
+
+
+# --- phase 8: rendering a dataset .json --------------------------------------
+
+DATASET_VIEWS = 3
+
+
+def run_dataset_render(xyz, feats, K_np, kernels, tmp: Path,
+                       dev="cuda") -> dict:
+    """Phase 8: ``apps/render.py`` from a dataset .json (``poses_from_dataset``
+    and the renderer at the size and intrinsics of its last item), rgb_only
+    with ``pack_sort_colors``: DATASET_VIEWS PNG views written to ``tmp``
+    (or, where PIL is missing, items served from memory by a dataset
+    subclass), the launch counts read around the frames; the table's r and
+    g rows against round_bf16 of the unpacked rows, and K3's packed frame
+    against the plain blend of the same table."""
+    import dataclasses
+    import importlib.util
+
+    from taichi_3d_gaussian_splatting_tpu_torch.apps import render
+    from taichi_3d_gaussian_splatting_tpu_torch.data import dataset as D
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.ops.packing import round_bf16
+
+    ply = str(tmp / "dataset_scene.ply")
+    scene_lib.to_ply(scene_lib.create_scene(xyz, scene_lib.SceneConfig(),
+                                            features=feats, device="cpu"),
+                     ply)
+    Ts = poses(DATASET_VIEWS)
+    items = loop_views(K_np, dev, count=DATASET_VIEWS)
+    has_pil = importlib.util.find_spec("PIL") is not None
+    records = []
+    for i, item in enumerate(items):
+        path = tmp / f"view_{i}.png"
+        if has_pil:
+            from PIL import Image
+
+            Image.fromarray(np.round(item.image * 255).astype(np.uint8),
+                            "RGB").save(path)
+        records.append({"image_path": str(path),
+                        "T_pointcloud_camera": Ts[i].tolist(),
+                        "camera_intrinsics": K_np.tolist(),
+                        "camera_height": HEIGHT, "camera_width": WIDTH,
+                        "camera_id": 0})
+    json_path = tmp / "views.json"
+    json_path.write_text(json.dumps(records))
+    dataset_cls = D.ImagePoseDataset
+    if not has_pil:
+        print("  no PIL on this machine: the dataset's items are served "
+              "from memory", flush=True)
+
+        class MemoryPoseDataset(dataset_cls):
+            def __getitem__(self, idx):
+                return items[idx]
+        D.ImagePoseDataset = MemoryPoseDataset
+    try:
+        Ts_read, info = render.poses_from_dataset(str(json_path))
+    finally:
+        D.ImagePoseDataset = dataset_cls
+    config = render.RendererConfig(
+        parquet_paths=[ply], image_height=info.camera_height,
+        image_width=info.camera_width,
+        camera_intrinsics=info.camera_intrinsics)
+    renderer = render.GaussianPointRenderer(config, Ts_read, device=dev)
+    renderer.rcfg = dataclasses.replace(renderer.rcfg, pack_sort_colors=True)
+    zero_launches(kernels)
+    frames = dict(renderer.frames())
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    e_pose = float(np.abs(Ts_read - Ts).max())
+    want = {"slot_keys": DATASET_VIEWS, "sorted_table": DATASET_VIEWS,
+            "tile_ranges": DATASET_VIEWS, "blend_forward": DATASET_VIEWS,
+            "blend_backward": 0, "segment_reduce_sorted": 0}
+    if launches != want:
+        raise AssertionError(f"dataset render launches {launches}, "
+                             f"expected {want}")
+    if e_pose > 1e-6 or (info.camera_height, info.camera_width) != (
+            HEIGHT, WIDTH):
+        raise AssertionError(f"dataset poses or size: {e_pose}, {info}")
+    if any(fr.shape != (HEIGHT, WIDTH, 3) or not fr.any()
+           for fr in frames.values()):
+        raise AssertionError("a dataset frame is empty or misshapen")
+
+    # the packed table (K1b on the card) against the unpacked one
+    s, cam = renderer.scene, renderer.camera
+    qs, ts = render.se3_to_qt(renderer.poses)
+    raw, radius = R.compute_raw_attrs(s.xyz, s.features, qs[1], ts[1], cam)
+    _, packed, _ = R.build_keys(raw, radius, s.invalid, cam, renderer.rcfg)
+    keys, table, _ = R.build_keys(raw, radius, s.invalid, cam,
+                                  dataclasses.replace(renderer.rcfg,
+                                                      pack_sort_colors=False))
+    bits = lambda a: a.contiguous().view(torch.int32)  # noqa: E731
+    rows_ok = all(torch.equal(bits(packed[r]), bits(
+        round_bf16(table[r]) if r in (6, 7) else table[r])) for r in range(16))
+    tile = R._cfg_tile(renderer.rcfg)
+    kw = dict(tile=tile, tiles_x=WIDTH // tile[0], tiles_y=HEIGHT // tile[1],
+              rgb_only=True)
+    got = blend.blend_forward(packed, keys.tile_start, keys.tile_end, **kw)
+    plain = blend.blend_forward_plain(packed, keys.tile_start, keys.tile_end,
+                                      **kw)
+    torch.cuda.synchronize()
+    e_rgb = max_abs(got[..., 0:3], plain[..., 0:3])
+    e_pack = max_abs(packed[6:8], table[6:8])
+    print(f"  {len(frames)} frames from {json_path.name} "
+          f"({'PNG' if has_pil else 'in-memory'} views; poses within "
+          f"{e_pose:.3g}); launches {launches}; packed table rows 6-7 are "
+          f"round_bf16 of the unpacked ones, the rest equal: {rows_ok} (max "
+          f"rounding {e_pack:.3g}); K3 on the packed table vs plain: max|d "
+          f"rgb| {e_rgb:.3g} (gate 1e-4)", flush=True)
+    if not rows_ok or e_rgb > 1e-4 or e_pack == 0.0:
+        raise AssertionError("the packed render is outside its gates")
+    return {"dataset_frames": len(frames), "dataset_png": has_pil,
+            "dataset_launches": launches, "dataset_pose_err": e_pose,
+            "dataset_packed_rgb_err": e_rgb,
+            "dataset_pack_rounding": e_pack}
+
+
+# --- phase 9: the scene as a Gaussian mixture, in Fourier space --------------
+
+def run_ftgmm(scene, tmp: Path) -> dict:
+    """Phase 9: ``tools/ftgmm.ft_grab_scene`` once on the phase-5 loop's
+    final scene (its diagnostic PNGs under ``tmp`` where matplotlib is
+    present)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.tools.ftgmm import (
+        ft_grab_scene,
+    )
+
+    vis_dir = tmp / "vis"
+    metrics, ms_ = synced_ms(ft_grab_scene, scene, vis_dir=str(vis_dir))
+    pngs = sorted(p.name for p in vis_dir.iterdir()) if vis_dir.exists() \
+        else []
+    print(f"  ft_grab_scene over {int(scene.num_valid())} points: "
+          f"{ms_:.1f} ms; {metrics}; plots {pngs}", flush=True)
+    if not all(math.isfinite(abs(v)) for v in metrics.values()):
+        raise AssertionError(f"ftgmm metrics not finite: {metrics}")
+    return {"ftgmm_ms": ms_, "ftgmm_points": int(scene.num_valid()),
+            "ftgmm_metrics": {k: [v.real, v.imag] if isinstance(v, complex)
+                              else v for k, v in metrics.items()},
+            "ftgmm_plots": pngs}
 
 
 # --- main -------------------------------------------------------------------
@@ -1421,14 +2017,13 @@ def main(argv=None) -> int:
 
     # phase 2: the main path, with the launch counts read around it
     phase("phase 2: render through GaussianPointRenderer")
-    for f in kernels.values():
-        f.launches = 0
+    zero_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with first_design_calls() as off_path:
         frames = dict(renderer.frames())
     first_pass_s = time.perf_counter() - t0
-    launches = {name: f.launches for name, f in render_kernels.items()}
+    launches = read_launches(render_kernels)
     print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass); "
           f"launches {launches}; first design's calls {off_path}", flush=True)
     for name, n in launches.items():
@@ -1604,7 +2199,23 @@ def main(argv=None) -> int:
 
     # phase 5: the training loop, with the launch counts read around it
     phase("phase 5: the training loop at full width")
-    loop = run_loop(xyz, feats, K_np, train["train_ms_per_step"], kernels)
+    loop, loop_scene = run_loop(xyz, feats, K_np, train["train_ms_per_step"],
+                                kernels)
+
+    # phases 6-9: the launch counts set to 0 just before each path and read
+    # just after it
+    phase("phase 6: pose-refining train steps at full width")
+    pose = run_pose_training(xyz, feats, K_np, train["train_ms_per_step"],
+                             kernels)
+    work_dir = tempfile.TemporaryDirectory()
+    phase("phase 7: the viewer answers requests")
+    viewer = run_viewer(xyz, feats, kernels, Path(work_dir.name))
+    phase("phase 8: render from a dataset .json (rgb_only, pack_sort_colors)")
+    dataset = run_dataset_render(xyz, feats, K_np, kernels,
+                                 Path(work_dir.name))
+    phase("phase 9: ft_grab_scene on the loop's final scene")
+    ftgmm = run_ftgmm(loop_scene, Path(work_dir.name))
+    work_dir.cleanup()
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -1676,6 +2287,12 @@ def main(argv=None) -> int:
                                      for c in counters),
             "launches_per_frame": sum(launches.get(c, 0)
                                       for c in counters) / len(pose_list),
+            "launches_pose_steps": sum(pose["pose_launches"][c]
+                                       for c in counters),
+            "launches_viewer_frames": sum(viewer["viewer_launches"][c]
+                                          for c in counters),
+            "launches_dataset_frames": sum(dataset["dataset_launches"][c]
+                                           for c in counters),
             "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -1705,7 +2322,8 @@ def main(argv=None) -> int:
         "render_first_design_calls": off_path,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
-        **train, **loop, "profiler_windows": dict(WINDOWS),
+        **train, **loop, **pose, **viewer, **dataset, **ftgmm,
+        "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
     }
     print(f"render: {frame_ms:.3f} ms/frame, {mpix_s:.1f} Mpix/s; "
@@ -1715,8 +2333,10 @@ def main(argv=None) -> int:
           f"{train['train_mpix_s']:.1f} Mpix/s, peak "
           f"{train['train_peak_mem_gib']:.2f} GiB; loop: "
           f"{loop['loop_ms_per_iteration']:.2f} ms an iteration (whole "
-          f"window), {loop['loop_iteration_ms']} ms a plain one by size",
-          flush=True)
+          f"window), {loop['loop_iteration_ms']} ms a plain one by size; "
+          f"pose-refining step {pose['pose_ms_per_step']:.3f} ms; viewer "
+          f"frame {viewer['viewer_frame_ms_median']:.2f} ms (median); "
+          f"ftgmm {ftgmm['ftgmm_ms']:.1f} ms", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

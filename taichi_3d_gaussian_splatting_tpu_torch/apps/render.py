@@ -1,9 +1,11 @@
 """Headless batch renderer: scene file + pose list -> PNG frames.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/apps/render.py``. Poses come
-from a .pt file (torch.save'd N x 4 x 4 SE(3), camera->world). Scenes are
+from a .pt file (torch.save'd N x 4 x 4 SE(3), camera->world) or from a
+dataset .json, whose last item gives the image size and intrinsics;
+``--gt_prefix`` also writes the dataset's ground-truth frames. Scenes are
 .parquet files or graphdeco .ply files (the latter need no pandas).
-``--portrait_mode`` flips the default landscape preset.
+``--portrait_mode`` flips the default landscape preset (.pt poses).
 
 Each frame runs ``rasterize(..., rgb_only=True)`` on the card: the tile
 keys are sized to the frame's exact total, so unlike the JAX renderer no
@@ -11,6 +13,9 @@ key capacity is probed up front.
 
     python -m taichi_3d_gaussian_splatting_tpu_torch.apps.render \\
         --parquet_path scene.ply --poses poses.pt --output_prefix frames
+    python -m taichi_3d_gaussian_splatting_tpu_torch.apps.render \\
+        --parquet_path scene.ply --poses val.json --output_prefix frames \\
+        --gt_prefix gt
 """
 from __future__ import annotations
 
@@ -34,7 +39,10 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     pin_f32_matmul,
     rasterize,
 )
-from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import se3_to_qt
+from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+    quaternion_to_rotation_matrix,
+    se3_to_qt,
+)
 
 TILE = 32
 
@@ -130,13 +138,52 @@ def load_poses_pt(path: str) -> np.ndarray:
                       weights_only=True).numpy().astype(np.float32)
 
 
+def poses_from_dataset(json_path: str, gt_prefix: Optional[Path] = None):
+    """(N, 4, 4) poses and the last item's CameraInfo (its intrinsics
+    rescaled to the decoded image) of a dataset .json. Only the last item
+    is decoded, unless ``gt_prefix`` is given: then every item is, and its
+    frame is written there as ``frame_{idx:03}.png``."""
+    from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
+        ImagePoseDataset,
+    )
+
+    ds = ImagePoseDataset(json_path, tile_size=TILE)
+    cameras = np.zeros((len(ds), 4, 4), np.float32)
+    info = None
+    for idx in range(len(ds)):
+        if gt_prefix is None and idx < len(ds) - 1:
+            # the pose straight from the record: decoding every frame
+            # would add minutes of I/O on a long dataset
+            cameras[idx] = np.asarray(
+                ds.records[idx]["T_pointcloud_camera"], np.float32
+            ).reshape(4, 4)
+            continue
+        item = ds[idx]
+        cameras[idx, :3, :3] = quaternion_to_rotation_matrix(
+            torch.from_numpy(item.q_pointcloud_camera)).numpy()
+        cameras[idx, :3, 3] = item.t_pointcloud_camera
+        cameras[idx, 3, 3] = 1.0
+        if gt_prefix is not None:
+            from PIL import Image
+
+            Image.fromarray(
+                np.round(item.image * 255).astype(np.uint8), "RGB"
+            ).save(Path(gt_prefix) / f"frame_{idx:03}.png")
+        info = item.camera_info
+    return cameras, info
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--parquet_path", type=str, required=True, nargs="+",
                         help="scene files (.parquet or graphdeco .ply)")
     parser.add_argument("--poses", type=str, required=True,
-                        help=".pt (torch.save'd N x 4 x 4 camera->world)")
+                        help=".pt (torch.save'd N x 4 x 4 camera->world) or "
+                        "dataset .json")
     parser.add_argument("--output_prefix", type=str, required=True)
+    parser.add_argument("--gt_prefix", type=str, default="",
+                        help="with .json poses, also write the dataset's "
+                        "frames here")
     parser.add_argument("--portrait_mode", action="store_true", default=False)
     parser.add_argument("--data_parallel", action="store_true", default=False)
     parser.add_argument("--tile_parallel", action="store_true", default=False)
@@ -145,21 +192,27 @@ def main(argv=None):
                         "of the kernels")
     args = parser.parse_args(argv)
 
-    if args.poses.endswith(".json"):
-        raise NotImplementedError(
-            "dataset .json poses are not ported yet; they need the dataset "
-            "module of the training-loop slice (ROADMAP.md)")
-    if not args.poses.endswith(".pt"):
-        raise ValueError(
-            f"Unrecognized poses file format: {args.poses}, must be .pt")
+    if not args.poses.endswith((".pt", ".json")):
+        raise ValueError(f"Unrecognized poses file format: {args.poses}, "
+                         "must be .pt or .json")
+    output_prefix = Path(args.output_prefix)
+    os.makedirs(output_prefix, exist_ok=True)
+    gt_prefix = None
+    if args.gt_prefix:
+        gt_prefix = Path(args.gt_prefix)
+        os.makedirs(gt_prefix, exist_ok=True)
     config = RendererConfig(parquet_paths=list(args.parquet_path),
                             data_parallel=args.data_parallel,
                             tile_parallel=args.tile_parallel)
-    poses = load_poses_pt(args.poses)
-    if args.portrait_mode:
-        config.set_portrait_mode()
-    output_prefix = Path(args.output_prefix)
-    os.makedirs(output_prefix, exist_ok=True)
+    if args.poses.endswith(".pt"):
+        poses = load_poses_pt(args.poses)
+        if args.portrait_mode:
+            config.set_portrait_mode()
+    else:
+        poses, info = poses_from_dataset(args.poses, gt_prefix)
+        config.image_width = info.camera_width
+        config.image_height = info.camera_height
+        config.camera_intrinsics = info.camera_intrinsics
     GaussianPointRenderer(config, poses, device=args.device).run(output_prefix)
 
 

@@ -48,13 +48,15 @@ def _field(obj, name: str):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def train_state_from_jax(scene, feat_adam, pos_adam, ctrl,
-                         device="cuda") -> TrainState:
+def train_state_from_jax(scene, feat_adam, pos_adam, ctrl, pose_deltas=None,
+                         pose_opt=None, device="cuda") -> TrainState:
     """The JAX package's training state -> the port's TrainState on
     ``device``. ``scene``: xyz, features, invalid, object_id; ``feat_adam``
     and ``pos_adam``: optax's Adam state (mu, nu, count) of the features
     and of the positions; ``ctrl``: the ControllerState fields. Each is a
-    mapping or an object with those attributes, of array-likes."""
+    mapping or an object with those attributes, of array-likes. Under pose
+    refinement, ``pose_deltas`` (num_images, 6) and ``pose_opt`` (a mapping
+    of mu, nu and the per-row count, as ``init_pose_opt`` makes it)."""
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
@@ -69,4 +71,7 @@ def train_state_from_jax(scene, feat_adam, pos_adam, ctrl,
             device=device),
         feat_opt=adam(feat_adam), pos_opt=adam(pos_adam),
         ctrl=ControllerState(*(put(_field(ctrl, f))
-                               for f in ControllerState._fields)))
+                               for f in ControllerState._fields)),
+        pose_deltas=None if pose_deltas is None else put(pose_deltas),
+        pose_opt=None if pose_opt is None else {
+            k: put(_field(pose_opt, k)) for k in ("mu", "nu", "count")})

@@ -43,14 +43,16 @@ class PointAttributes(NamedTuple):
 def compute_point_attributes(
     xyz: torch.Tensor,            # (N, 3)
     features: torch.Tensor,       # (N, 56)
-    q_cam: torch.Tensor,          # (4,) world->camera rotation, xyzw
-    t_cam: torch.Tensor,          # (3,) world->camera translation
+    q_cam: torch.Tensor,          # (4,) or (N, 4) world->camera rotation, xyzw
+    t_cam: torch.Tensor,          # (3,) or (N, 3) world->camera translation
     K: torch.Tensor,              # (3, 3)
-    camera_center: torch.Tensor,  # (3,) camera origin in world frame
+    camera_center: torch.Tensor,  # (3,) or (N, 3) camera origin, world frame
     sh_max_band: int = 3,
 ) -> PointAttributes:
     """Project every pool slot to screen space. ``sh_max_band`` masks the SH
-    bands above it."""
+    bands above it. A pose given per point (the JAX package's per-object
+    poses, which it maps over points) broadcasts through the same
+    elementwise formulas."""
     R_cw = quaternion_to_rotation_matrix(q_cam)
 
     quat = features[:, 0:4]

@@ -25,13 +25,14 @@ def project_point(xyz: torch.Tensor, R_cw: torch.Tensor, t_cw: torch.Tensor,
                   K: torch.Tensor):
     """World point -> (uv (..., 2), xyz_cam (..., 3)).
 
-    R_cw/t_cw: world->camera rotation (3, 3) and translation (3,);
-    K: (3, 3) intrinsics.
+    R_cw/t_cw: world->camera rotation (3, 3) and translation (3,), or one
+    per point, (..., 3, 3) and (..., 3); K: (3, 3) intrinsics.
     """
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    cx = R_cw[0, 0] * x + R_cw[0, 1] * y + R_cw[0, 2] * z + t_cw[0]
-    cy = R_cw[1, 0] * x + R_cw[1, 1] * y + R_cw[1, 2] * z + t_cw[1]
-    cz = R_cw[2, 0] * x + R_cw[2, 1] * y + R_cw[2, 2] * z + t_cw[2]
+    R, t = R_cw, t_cw
+    cx = R[..., 0, 0] * x + R[..., 0, 1] * y + R[..., 0, 2] * z + t[..., 0]
+    cy = R[..., 1, 0] * x + R[..., 1, 1] * y + R[..., 1, 2] * z + t[..., 1]
+    cz = R[..., 2, 0] * x + R[..., 2, 1] * y + R[..., 2, 2] * z + t[..., 2]
     inv = 1.0 / _away_from_zero(cz)
     u = (K[0, 0] * cx + K[0, 1] * cy + K[0, 2] * cz) * inv
     v = (K[1, 0] * cx + K[1, 1] * cy + K[1, 2] * cz) * inv
@@ -42,7 +43,8 @@ def project_cov2d_components(q: torch.Tensor, log_scale: torch.Tensor,
                              R_cw: torch.Tensor, K: torch.Tensor,
                              xyz_cam: torch.Tensor):
     """EWA covariance cov2d = B B^T, B = (J R_cw)(R(q) diag(exp(s))), as
-    explicit per-component formulas: returns (a, b, c), each 1-D."""
+    explicit per-component formulas: returns (a, b, c), each 1-D. R_cw is
+    (3, 3), or (..., 3, 3) with one rotation per point."""
     fx = K[0, 0]
     fy = K[1, 1]
     x, y = xyz_cam[..., 0], xyz_cam[..., 1]
@@ -54,9 +56,9 @@ def project_cov2d_components(q: torch.Tensor, log_scale: torch.Tensor,
     jxz = -fx * x * inv_z * inv_z
     jyz = -fy * y * inv_z * inv_z
 
-    r0, r1, r2 = R_cw[0], R_cw[1], R_cw[2]
-    A0 = [jx * r0[i] + jxz * r2[i] for i in range(3)]
-    A1 = [jy * r1[i] + jyz * r2[i] for i in range(3)]
+    r0, r1, r2 = R_cw[..., 0, :], R_cw[..., 1, :], R_cw[..., 2, :]
+    A0 = [jx * r0[..., i] + jxz * r2[..., i] for i in range(3)]
+    A1 = [jy * r1[..., i] + jyz * r2[..., i] for i in range(3)]
 
     qx, qy, qz, qw = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     xx, yy, zz = qx * qx, qy * qy, qz * qz

@@ -14,10 +14,13 @@ Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
      compute_raw_attrs -> xyz, features.
 
 ``rasterize`` differentiates through ``_BlendCore`` (a
-``torch.autograd.Function``) when xyz or features require grad, and runs
-under ``torch.no_grad()`` otherwise, so rendering builds no graph.
-``rasterize_fwd_ctx`` / ``rasterize_bwd`` are the trainer's explicit pair,
-which also returns the densification statistics (``GradStats``).
+``torch.autograd.Function``) when xyz, features or the camera pose (q, t)
+require grad, and runs under ``torch.no_grad()`` otherwise, so rendering
+builds no graph. ``rasterize_fwd_ctx`` / ``rasterize_bwd`` are the
+trainer's explicit pair, which also returns the densification statistics
+(``GradStats``) and, ``with_pose_grads``, the pose cotangents. The pose is
+one (4,)/(3,) camera pose, or (K, 4)/(K, 3) per-object poses picked per
+point by ``point_object_id``.
 
 Gradient semantics, as the JAX package's: only the rgb output
 backpropagates; the 0.99 alpha clamp is straight-through; the conic
@@ -36,6 +39,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
     compute_point_attributes,
     frustum_cull_mask,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops.packing import round_bf16
 from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (
     segment_reduce_sorted,
 )
@@ -49,7 +53,10 @@ class RasterizerConfig:
     ``key_cap``, ``blend_chunk``, ``blend_strips``, ``candidate_mode``,
     ``cand_scale`` and ``interpret`` size or steer the TPU kernels; they are
     accepted so that one config serves both packages, and ignored here
-    (the key buffer is sized to each frame's exact total)."""
+    (the key buffer is sized to each frame's exact total).
+    ``pack_sort_colors`` with ``rgb_only`` rounds the blend table's r and g
+    to bf16, as the JAX package's sort carrier does; without ``rgb_only`` it
+    is ignored, as there."""
 
     near_plane: float = 0.8
     far_plane: float = 1000.0
@@ -84,10 +91,6 @@ class RasterizerConfig:
         if self.tile_h is not None and self.tile_size % self.tile_h != 0:
             raise ValueError(
                 f"tile_h={self.tile_h} must divide tile_size={self.tile_size}")
-        if self.pack_sort_colors:
-            raise NotImplementedError(
-                "pack_sort_colors (bf16 r/g sort payloads) is not ported yet; "
-                "it is listed for the render-apps slice in ROADMAP.md")
 
 
 class Camera(NamedTuple):
@@ -179,14 +182,16 @@ def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
                       camera: Camera, sh_max_band=3,
                       point_object_id: Optional[torch.Tensor] = None):
     """Project pool slots to screen space. ``q/t_pointcloud_camera`` is the
-    camera pose in the world frame, shapes (4,)/(3,). Returns (RawAttrs,
-    per-axis cull radius (N, 2))."""
+    camera pose in the world frame, shapes (4,)/(3,), or per-object poses
+    (K, 4)/(K, 3), each point taking the pose of its ``point_object_id``.
+    Returns (RawAttrs, per-axis cull radius (N, 2))."""
     if point_object_id is not None and q_pointcloud_camera.dim() == 2:
-        raise NotImplementedError(
-            "per-object (K, 4) poses are not ported yet; they come with the "
-            "poses slice (ROADMAP.md)")
-    q_pc = q_pointcloud_camera.reshape(4)
-    t_pc = t_pointcloud_camera.reshape(3)
+        idx = point_object_id.long()
+        q_pc = q_pointcloud_camera[idx]
+        t_pc = t_pointcloud_camera[idx]
+    else:
+        q_pc = q_pointcloud_camera.reshape(4)
+        t_pc = t_pointcloud_camera.reshape(3)
     q_cw, t_cw = inverse_qt(q_pc, t_pc)
     attrs = compute_point_attributes(xyz, features, q_cw, t_cw, camera.K, t_pc,
                                      sh_max_band)
@@ -196,19 +201,23 @@ def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
     return raw, attrs.radius_xy
 
 
-def attr_columns(raw: RawAttrs) -> torch.Tensor:
+def attr_columns(raw: RawAttrs, pack_colors: bool = False) -> torch.Tensor:
     """(10, N) blend columns [u, v, conic a, b, c, log(rescale*opacity), r, g,
     b, depth]. Rescale and opacity are sanitized BEFORE the log, so NaN
-    features blend as fully transparent (log(1e-37) = -85)."""
+    features blend as fully transparent (log(1e-37) = -85). With
+    ``pack_colors`` r and g are rounded to bf16 (the values the JAX
+    package's r/g sort carrier unpacks to)."""
     resc = torch.where(torch.isfinite(raw.conic[:, 3]), raw.conic[:, 3],
                        torch.zeros_like(raw.conic[:, 3]))
     op = torch.where(torch.isfinite(raw.opacity), raw.opacity,
                      torch.zeros_like(raw.opacity))
     logro = torch.log(torch.clamp_min(resc * op, 1e-37))
+    r, g = raw.color[:, 0], raw.color[:, 1]
+    if pack_colors:
+        r, g = round_bf16(r), round_bf16(g)
     return torch.stack(
         [raw.uv[:, 0], raw.uv[:, 1], raw.conic[:, 0], raw.conic[:, 1],
-         raw.conic[:, 2], logro, raw.color[:, 0], raw.color[:, 1],
-         raw.color[:, 2], raw.depth], dim=0)
+         raw.conic[:, 2], logro, r, g, raw.color[:, 2], raw.depth], dim=0)
 
 
 @torch.no_grad()
@@ -223,7 +232,8 @@ def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
     keys, table = tiling.build_tile_keys_and_table(
         raw.uv, raw.depth, radius, visible, camera.width, camera.height,
         _cfg_tile(cfg), cfg.depth_to_sort_key_scale,
-        attr_cols=attr_columns(raw), exact_tile_cull=cfg.exact_tile_cull)
+        attr_cols=attr_columns(raw, cfg.pack_sort_colors and cfg.rgb_only),
+        exact_tile_cull=cfg.exact_tile_cull)
     return keys, table, visible
 
 
@@ -318,19 +328,16 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
               point_object_id: Optional[torch.Tensor] = None,
               return_num_keys: bool = False):
     """Render the scene into a camera view; differentiable with respect to
-    xyz and features. Requires camera.width/height divisible by the tile.
-    With ``return_num_keys`` also returns the number of tile keys of this
-    frame."""
+    xyz, features and the pose (q, t). Requires camera.width/height
+    divisible by the tile. With ``return_num_keys`` also returns the number
+    of tile keys of this frame."""
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
-    if q_pointcloud_camera.requires_grad or t_pointcloud_camera.requires_grad:
-        raise NotImplementedError(
-            "camera pose gradients are not ported yet; they come with the "
-            "poses slice (ROADMAP.md A8)")
     pin_f32_matmul()
     grid_hw = (camera.width // tile[0], camera.height // tile[1])
-    needs_grad = torch.is_grad_enabled() and (xyz.requires_grad
-                                              or features.requires_grad)
+    needs_grad = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (xyz, features, q_pointcloud_camera,
+                                  t_pointcloud_camera))
     with torch.set_grad_enabled(needs_grad):
         raw, radius = compute_raw_attrs(
             xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera,
@@ -351,21 +358,20 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
                       point_object_id=None, with_pose_grads: bool = False):
     """Forward pass returning (output, RenderContext, attrs_vjp) for
     ``rasterize_bwd``. ``attrs_vjp(d_raw)`` maps raw-attribute cotangents
-    to (d_xyz, d_features) by autograd of ``compute_raw_attrs``; it can be
+    to (d_xyz, d_features), or with ``with_pose_grads`` to (d_xyz,
+    d_features, d_q, d_t), by autograd of ``compute_raw_attrs``; it can be
     called once. The output carries no graph."""
-    if with_pose_grads:
-        raise NotImplementedError(
-            "with_pose_grads (camera pose refinement) is not ported yet; it "
-            "comes with the poses slice (ROADMAP.md A8)")
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
     pin_f32_matmul()
     x = xyz.detach().requires_grad_(True)
     f = features.detach().requires_grad_(True)
+    q = q_pointcloud_camera.detach().requires_grad_(with_pose_grads)
+    t = t_pointcloud_camera.detach().requires_grad_(with_pose_grads)
+    inputs = (x, f, q, t) if with_pose_grads else (x, f)
     with torch.enable_grad():
-        raw, radius = compute_raw_attrs(
-            x, f, q_pointcloud_camera.detach(), t_pointcloud_camera.detach(),
-            camera, sh_max_band, point_object_id)
+        raw, radius = compute_raw_attrs(x, f, q, t, camera, sh_max_band,
+                                        point_object_id)
     with torch.no_grad():
         # radius only feeds the tiling stage: it is cut from the graph
         raw_values = RawAttrs(*(a.detach() for a in raw))
@@ -379,7 +385,7 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
 
     def attrs_vjp(d_raw: RawAttrs):
         return torch.autograd.grad(
-            (raw.uv, raw.conic, raw.opacity, raw.color), (x, f),
+            (raw.uv, raw.conic, raw.opacity, raw.color), inputs,
             (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color))
 
     return out, ctx, attrs_vjp
@@ -388,7 +394,9 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
 def rasterize_bwd(ctx: RenderContext, attrs_vjp, d_rgb: torch.Tensor,
                   camera: Camera, cfg: RasterizerConfig):
     """Backward from the (H, W, 3) image cotangent to ((d_xyz, d_features),
-    GradStats). Grad factors and SH-band masking are the trainer's."""
+    GradStats), or ((d_xyz, d_features, d_q, d_t), GradStats) for a context
+    made ``with_pose_grads``. Grad factors and SH-band masking are the
+    trainer's."""
     tile = _cfg_tile(cfg)
     tiles_x = camera.width // tile[0]
     tiles_y = camera.height // tile[1]

@@ -2,7 +2,8 @@
 
 Port of ``taichi_3d_gaussian_splatting_tpu/training/checkpoint.py``: the
 whole ``TrainState`` (scene, both Adam states with their update counts,
-the controller's accumulators) plus host metadata (iteration, best PSNR,
+the controller's accumulators, and under pose refinement the pose deltas
+with their Adam state) plus host metadata (iteration, best PSNR,
 the densify generator's state) round-trips through a directory of ``.npy``
 leaves and a JSON manifest. Leaves are saved by index in the fixed order of
 ``state_leaves``; the JAX package's checkpoints are not read.
@@ -27,21 +28,35 @@ from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
 )
 
 
+POSE_OPT_KEYS = ("mu", "nu", "count")
+
+
 def state_leaves(state: TrainState) -> List:
     """The state's leaves in their fixed order: the scene's four tensors,
-    each Adam's mu, nu and count (an int), the controller's six tensors."""
+    each Adam's mu, nu and count (an int), the controller's six tensors,
+    and when the state has them the pose deltas and their Adam's mu, nu
+    and per-row count."""
     leaves = list(state.scene)
     for opt in (state.feat_opt, state.pos_opt):
         leaves += [opt.mu, opt.nu, opt.count]
-    return leaves + list(state.ctrl)
+    leaves += list(state.ctrl)
+    if state.pose_deltas is not None:
+        leaves += [state.pose_deltas] + [state.pose_opt[k]
+                                         for k in POSE_OPT_KEYS]
+    return leaves
 
 
 def _state_from_leaves(leaves: List) -> TrainState:
     scene = GaussianScene(*leaves[0:4])
     feat = AdamState(leaves[4], leaves[5], int(leaves[6]))
     pos = AdamState(leaves[7], leaves[8], int(leaves[9]))
+    n_ctrl = len(ControllerState._fields)
+    pose = leaves[10 + n_ctrl:]
     return TrainState(scene=scene, feat_opt=feat, pos_opt=pos,
-                      ctrl=ControllerState(*leaves[10:]))
+                      ctrl=ControllerState(*leaves[10:10 + n_ctrl]),
+                      pose_deltas=pose[0] if pose else None,
+                      pose_opt=dict(zip(POSE_OPT_KEYS, pose[1:])) if pose
+                      else None)
 
 
 def _as_numpy(leaf) -> np.ndarray:

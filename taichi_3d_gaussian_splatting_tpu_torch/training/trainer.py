@@ -1,18 +1,20 @@
 """Training: one step, the densify and eval steps, and the training loop.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py`` on one
-device, without pose refinement, ``scan_steps`` windows or multi-device
-training.
+device, without ``scan_steps`` windows or multi-device training.
 
-``make_train_step`` (without pose refinement and ``scan_steps``): the step
-runs forward (``rasterize_fwd_ctx``: attributes, tile keys, the blend
-kernel), the L1 + SSIM loss, the backward (``rasterize_bwd``: the
-blend_backward kernel, the segment_reduce kernel reading its sorted rows
-through the inverse key permutation, autograd of the attributes), the
-grad factors, one Adam on the
-features and one on the positions (staircase-decayed learning rate), and
-``controller.accumulate``. It returns a new state and leaves its input as
-it was.
+``make_train_step`` (without ``scan_steps``): the step runs forward
+(``rasterize_fwd_ctx``: attributes, tile keys, the blend kernel), the L1 +
+SSIM loss, the backward (``rasterize_bwd``: the blend_backward kernel, the
+segment_reduce kernel reading its sorted rows through the inverse key
+permutation, autograd of the attributes), the grad factors, one Adam on
+the features and one on the positions (staircase-decayed learning rate),
+and ``controller.accumulate``. It returns a new state and leaves its input as
+it was. With ``pose_refinement`` the step also refines the camera pose of
+the view it trains on: the pose is composed with that view's se(3) delta
+(``TrainState.pose_deltas``), the rasterizer returns the pose cotangent,
+and one exact Adam step moves that delta's row alone (its own count and
+bias correction), as the JAX step does.
 
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
 the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``.
@@ -32,7 +34,7 @@ import collections
 import dataclasses
 import os
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +52,10 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     rasterize,
     rasterize_bwd,
     rasterize_fwd_ctx,
+)
+from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+    apply_pose_delta,
+    quaternion_to_rotation_matrix,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.training import controller as ctrl
 from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
@@ -78,10 +84,25 @@ class AdamState(NamedTuple):
 
 
 class TrainState(NamedTuple):
+    """``pose_deltas`` ((num_train_images, 6) se(3): omega xyz, dt xyz) and
+    ``pose_opt`` (``init_pose_opt``) are set only under
+    ``config.pose_refinement``."""
+
     scene: GaussianScene
     feat_opt: AdamState
     pos_opt: AdamState
     ctrl: ctrl.ControllerState
+    pose_deltas: Optional[torch.Tensor] = None
+    pose_opt: Optional[dict] = None
+
+
+def init_pose_opt(num_images: int, device="cpu") -> dict:
+    """Per-row sparse-Adam state of the pose deltas: ``mu``, ``nu`` (each
+    (num_images, 6)) and each row's update ``count`` ((num_images,) f32)."""
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
+                                       device=device)
+    return {"mu": zeros(num_images, 6), "nu": zeros(num_images, 6),
+            "count": zeros(num_images)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,29 +147,63 @@ def make_optimizers(config: TrainConfig):
     return Adam(lambda count: lr_f), Adam(position_lr)
 
 
-def init_train_state(scene: GaussianScene, config: TrainConfig) -> TrainState:
+def init_train_state(scene: GaussianScene, config: TrainConfig,
+                     num_train_images: int = 0) -> TrainState:
+    """A fresh state; under ``config.pose_refinement`` with zero pose deltas
+    for ``num_train_images`` views."""
     feature_tx, position_tx = make_optimizers(config)
+    dev = scene.xyz.device
+    pose_deltas = pose_opt = None
+    if config.pose_refinement:
+        pose_deltas = torch.zeros((num_train_images, 6), dtype=torch.float32,
+                                  device=dev)
+        pose_opt = init_pose_opt(num_train_images, device=dev)
     return TrainState(
         scene=scene, feat_opt=feature_tx.init(scene.features),
         pos_opt=position_tx.init(scene.xyz),
-        ctrl=ctrl.init_state(scene.capacity, device=scene.xyz.device))
+        ctrl=ctrl.init_state(scene.capacity, device=dev),
+        pose_deltas=pose_deltas, pose_opt=pose_opt)
+
+
+# Adam of the pose deltas (the JAX step's constants)
+POSE_B1, POSE_B2, POSE_EPS = 0.9, 0.999, 1e-8
+
+
+def _pose_adam_row(state: TrainState, idx: int, d_delta: torch.Tensor,
+                   lr: float):
+    """One exact Adam step on row ``idx`` of the pose deltas alone, with
+    that row's own count and bias correction: (pose_deltas, pose_opt),
+    new tensors. (A full-matrix Adam would decay every other view's
+    momentum on each step.)"""
+    po = state.pose_opt
+    mu = POSE_B1 * po["mu"][idx] + (1.0 - POSE_B1) * d_delta
+    nu = POSE_B2 * po["nu"][idx] + (1.0 - POSE_B2) * d_delta * d_delta
+    count = po["count"][idx] + 1.0
+    mu_hat = mu / (1.0 - torch.pow(POSE_B1, count))
+    nu_hat = nu / (1.0 - torch.pow(POSE_B2, count))
+    move = -lr * mu_hat / (torch.sqrt(nu_hat) + POSE_EPS)
+    new = {k: v.clone() for k, v in po.items()}
+    new["mu"][idx], new["nu"][idx], new["count"][idx] = mu, nu, count
+    deltas = state.pose_deltas.clone()
+    deltas[idx] = deltas[idx] + move
+    return deltas, new
 
 
 def make_train_step(config: TrainConfig, height: int, width: int,
                     scan_steps: int = 0, device="cuda"):
     """The step for one (height, width) image size, on ``device``:
-    ``step(state, image_gt, q, t, K, sh_band) -> (new_state, metrics,
-    aux)``, with the (H, W, 3) ground truth in uint8 or f32 and the camera
-    pose (q, t) in the world frame."""
+    ``step(state, image_gt, q, t, K, sh_band, img_idx=-1) -> (new_state,
+    metrics, aux)``, with the (H, W, 3) ground truth in uint8 or f32 and the
+    camera pose (q, t) in the world frame. Under ``pose_refinement``,
+    ``img_idx`` (a host int) is the view's row of ``state.pose_deltas``;
+    -1 renders the pose as given (through a zero delta) and moves no row,
+    as during ``pose_refinement_warm_up``."""
     if scan_steps > 0:
         raise NotImplementedError(
             "scan_steps: the JAX package's lax.scan windows only saved "
             "remote-TPU dispatches; the port runs one step per call and "
             "does not port them (ROADMAP.md)")
-    if config.pose_refinement:
-        raise NotImplementedError(
-            "pose_refinement is not ported yet; it comes with the poses "
-            "slice (ROADMAP.md A8)")
+    pose_refine = config.pose_refinement
     rcfg = config.rasterisation_config
     if config.train_slim and not rcfg.rgb_only:
         # blend rgb only; gradients and densify stats are unchanged
@@ -158,7 +213,8 @@ def make_train_step(config: TrainConfig, height: int, width: int,
     dev = torch.device(device)
     gf = torch.from_numpy(grad_factor_vector(rcfg)).to(dev)
 
-    def step(state: TrainState, image_gt, q, t, K, sh_band):
+    def step(state: TrainState, image_gt, q, t, K, sh_band,
+             img_idx: int = -1):
         scene = state.scene
         if scene.xyz.device.type != dev.type:
             raise ValueError(f"the step was made for {dev}, the state lies "
@@ -166,9 +222,35 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         if image_gt.dtype == torch.uint8:
             image_gt = image_gt.to(torch.float32) * (1.0 / 255.0)
         camera = Camera(K=K, width=width, height=height)
+        xyz_in, feats_in = scene.xyz, scene.features
+        refine = pose_refine and img_idx >= 0
+        if pose_refine:
+            if refine:
+                delta = state.pose_deltas[img_idx].detach()
+                delta.requires_grad_(True)
+            else:
+                delta = torch.zeros(6, dtype=torch.float32, device=dev)
+            with torch.set_grad_enabled(refine):
+                q_used, t_used = apply_pose_delta(q, t, delta)
+            # the pose cotangent sums over pool slots, so an invalid
+            # (zero-padded) slot's NaN Jacobian would poison it: invalid
+            # slots get inert inputs (identity quaternion, a point 1 m in
+            # front of the camera). No key reaches them, so their values
+            # never show.
+            with torch.no_grad():
+                inval = scene.invalid[:, None]
+                # R(q) e_z + t, from the pose alone (no host tensor, so no
+                # copy that would wait for the device)
+                front = quaternion_to_rotation_matrix(q_used)[:, 2] + t_used
+                safe_row = torch.zeros(56, dtype=torch.float32, device=dev)
+                safe_row[3] = 1.0
+                xyz_in = torch.where(inval, front[None, :], xyz_in)
+                feats_in = torch.where(inval, safe_row[None, :], feats_in)
+            q, t = q_used.detach(), t_used.detach()
         out, ctx, attrs_vjp = rasterize_fwd_ctx(
-            scene.xyz, scene.features, scene.invalid, q, t, camera, rcfg,
-            sh_max_band=sh_band, point_object_id=scene.object_id)
+            xyz_in, feats_in, scene.invalid, q, t, camera, rcfg,
+            sh_max_band=sh_band, point_object_id=scene.object_id,
+            with_pose_grads=refine)
         pred = torch.clamp(out.rgb, 0.0, 1.0)
 
         p = pred.detach().requires_grad_(True)
@@ -186,8 +268,18 @@ def make_train_step(config: TrainConfig, height: int, width: int,
             # bounds (empty pixels sit at exactly 0)
             pass_mask = (out.rgb > 0.0) & (out.rgb < 1.0)
             d_rgb = torch.where(pass_mask, d_pred, torch.zeros_like(d_pred))
-        (d_xyz, d_features), stats = rasterize_bwd(ctx, attrs_vjp, d_rgb,
-                                                   camera, rcfg)
+        grads, stats = rasterize_bwd(ctx, attrs_vjp, d_rgb, camera, rcfg)
+        d_xyz, d_features = grads[0], grads[1]
+        pose_deltas, pose_opt = state.pose_deltas, state.pose_opt
+        pose_aux = {}
+        if refine:
+            d_q, d_t = grads[2], grads[3]
+            (d_delta,) = torch.autograd.grad((q_used, t_used), delta,
+                                             (d_q, d_t))
+            with torch.no_grad():
+                pose_deltas, pose_opt = _pose_adam_row(
+                    state, img_idx, d_delta, config.pose_learning_rate)
+            pose_aux = {"grad_q": d_q, "grad_t": d_t, "grad_pose": d_delta}
         with torch.no_grad():
             d_features = d_features * gf[None, :] + d_feat_reg
             # never move invalid slots
@@ -210,11 +302,12 @@ def make_train_step(config: TrainConfig, height: int, width: int,
             "pred": pred, "depth": out.depth, "count": out.count,
             "stats": stats, "point_depth": ctx.raw.depth,
             "point_uv": ctx.raw.uv, "grad_features": d_features,
-            "grad_xyz": d_xyz,
+            "grad_xyz": d_xyz, **pose_aux,
         }
         new_state = TrainState(
             scene=scene._replace(features=features, xyz=xyz),
-            feat_opt=feat_opt, pos_opt=pos_opt, ctrl=ctrl_state)
+            feat_opt=feat_opt, pos_opt=pos_opt, ctrl=ctrl_state,
+            pose_deltas=pose_deltas, pose_opt=pose_opt)
         return new_state, metrics, aux
 
     return step
@@ -281,10 +374,6 @@ def _np(x) -> np.ndarray:
 def _refuse_unported(config: TrainConfig) -> None:
     """Raise NotImplementedError for the options of the JAX trainer that
     the port has not ported."""
-    if config.pose_refinement:
-        raise NotImplementedError(
-            "pose_refinement is not ported yet; it comes with the poses "
-            "slice (ROADMAP.md A8)")
     if (config.multihost or config.data_parallel_devices > 1
             or config.tile_parallel_devices > 1):
         raise NotImplementedError(
@@ -405,7 +494,8 @@ class GaussianPointCloudTrainer:
                                 num_threads=config.num_data_threads,
                                 seed=config.seed)
         data_iter = iter(loader)
-        state = init_train_state(self.scene, config)
+        state = init_train_state(self.scene, config,
+                                 len(self.train_dataset))
 
         start_iteration = 0
         if config.resume_from:
@@ -446,8 +536,11 @@ class GaussianPointCloudTrainer:
                 h = item.camera_info.camera_height
                 w = item.camera_info.camera_width
                 sh_band = iteration // config.increase_color_max_sh_band_interval
+                # -1 holds the pose still during the pose warm-up
+                pose_idx = (item.index if iteration
+                            >= config.pose_refinement_warm_up else -1)
                 state, metrics, aux = self._get_step(h, w)(
-                    state, *self._item_tensors(item), sh_band)
+                    state, *self._item_tensors(item), sh_band, pose_idx)
 
                 # densify cadence, on the post-optimizer-step scene
                 warm = iteration >= ccfg.num_iterations_warm_up
@@ -466,9 +559,17 @@ class GaussianPointCloudTrainer:
                     state = state._replace(
                         scene=self.alpha_reset(state.scene))
 
+                # the scene as a Gaussian mixture, in Fourier space: a
+                # diagnostic, so a failure is printed and training goes on
                 if iteration and iteration % 1234 == 0:
-                    print(f"ftgmm analysis skipped at iteration {iteration}: "
-                          "tools/ftgmm.py is not ported yet (ROADMAP.md A9)")
+                    try:
+                        from taichi_3d_gaussian_splatting_tpu_torch.tools.ftgmm import (  # noqa: E501
+                            ft_grab_scene,
+                        )
+                        ft_grab_scene(state.scene, vis_dir=os.path.join(
+                            config.summary_writer_log_dir, "vis"))
+                    except Exception as e:  # the analysis is diagnostic-only
+                        print(f"ftgmm analysis failed at {iteration}: {e}")
 
                 # metrics stay on the device and are read at log cadence
                 recent_losses.append(metrics["loss"])
@@ -676,6 +777,33 @@ class GaussianPointCloudTrainer:
 
     # -- validation -------------------------------------------------------------
 
+    def _export_refined_poses(self, state: TrainState) -> None:
+        """Write ``refined_poses.json`` beside the checkpoints: the train
+        dataset's records with ``T_pointcloud_camera`` replaced by the pose
+        composed with its learned delta, R(q) R(exp(omega)) and t + dt (what
+        ``apply_pose_delta`` renders), a dataset json the render CLI and
+        ``ImagePoseDataset`` read as it is."""
+        import json
+
+        from scipy.spatial.transform import Rotation
+
+        deltas = _np(state.pose_deltas)  # (N, 6)
+        recs = self.train_dataset.records
+        Ts = np.stack([np.asarray(r["T_pointcloud_camera"], np.float32)
+                       for r in recs])
+        R_new = (Rotation.from_matrix(Ts[:, :3, :3])
+                 * Rotation.from_rotvec(deltas[:, :3])).as_matrix()
+        t_new = Ts[:, :3, 3] + deltas[:, 3:]
+        records = []
+        for i, rec in enumerate(recs):
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = R_new[i]
+            T[:3, 3] = t_new[i]
+            records.append(dict(rec, T_pointcloud_camera=T.tolist()))
+        with open(os.path.join(self.output_model_dir, "refined_poses.json"),
+                  "w") as f:
+            json.dump(records, f)
+
     def _validate(self, state: TrainState, iteration: int) -> TrainState:
         """Render every val view; log the mean loss, PSNR and SSIM; write
         ``scene_{iteration}``, ``checkpoint_latest`` and, on a new best
@@ -718,6 +846,8 @@ class GaussianPointCloudTrainer:
 
         self._save_scene(state.scene, os.path.join(
             self.output_model_dir, f"scene_{iteration}.parquet"))
+        if config.pose_refinement and state.pose_deltas is not None:
+            self._export_refined_poses(state)
         if config.save_full_checkpoint:
             from taichi_3d_gaussian_splatting_tpu_torch.training.checkpoint import (  # noqa: E501
                 save_checkpoint,

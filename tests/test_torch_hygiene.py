@@ -1,7 +1,7 @@
 """Rules of the port that no parity test covers: it never imports JAX or
 the JAX package, it imports without CUDA (and without PyYAML, PIL, pandas
 or tensorboardX), gradients
-flow through its rasterizer, the options it has not ported raise, and its
+flow through its rasterizer, the options it does not port raise, and its
 kernel wrappers reject malformed tensors and never launch on the CPU."""
 import ast
 import dataclasses
@@ -133,7 +133,6 @@ def test_loop_imports_without_optional_packages():
 
 
 @pytest.mark.parametrize("over, match", [
-    ({"pose_refinement": True}, "poses slice"),
     ({"multihost": True}, "multi-device slice"),
     ({"data_parallel_devices": 2}, "multi-device slice"),
     ({"tile_parallel_devices": 2}, "multi-device slice"),
@@ -164,26 +163,11 @@ def test_rasterize_gradients_flow(which):
 
 
 def test_rasterizer_config_refuses_deferred_options():
-    with pytest.raises(NotImplementedError):
-        tr.RasterizerConfig(pack_sort_colors=True)
     with pytest.raises(ValueError):
         tr.RasterizerConfig(slim=True, rgb_only=True)
-    xyz, feats, invalid, q, t = _scene_tensors()
-    cam = tr.Camera(torch.from_numpy(make_K()), 64, 64)
-    with pytest.raises(NotImplementedError, match="per-object"):
-        tr.compute_raw_attrs(xyz, feats, q[None].repeat(2, 1),
-                             t[None].repeat(2, 1), cam,
-                             point_object_id=torch.zeros(50, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="poses slice"):
-        tr.rasterize_fwd_ctx(xyz, feats, invalid, q, t, cam,
-                             tr.RasterizerConfig(), with_pose_grads=True)
-    with pytest.raises(NotImplementedError, match="poses slice"):
-        tr.rasterize(xyz, feats, invalid, q.clone().requires_grad_(True), t,
-                     cam, tr.RasterizerConfig())
 
 
 @pytest.mark.parametrize("config, scan_steps, match", [
-    (TrainConfig(pose_refinement=True), 0, "poses slice"),
     (TrainConfig(), 2, "scan_steps"),
 ])
 def test_train_step_refuses_unported_options(config, scan_steps, match):

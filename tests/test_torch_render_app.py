@@ -69,8 +69,7 @@ def test_render_cli_writes_frames(scene_files, tmp_path):
 
 
 @pytest.mark.parametrize("argv_extra, poses", [
-    (["--data_parallel"], "poses.pt"), (["--tile_parallel"], "poses.pt"),
-    ([], "poses.json")])
+    (["--data_parallel"], "poses.pt"), (["--tile_parallel"], "poses.pt")])
 def test_render_cli_refuses_later_slices(scene_files, tmp_path, argv_extra,
                                          poses):
     with pytest.raises(NotImplementedError):

@@ -32,12 +32,15 @@ ITERS = 8
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
+    return write_dataset(tmp_path_factory.mktemp("dataset"))
+
+
+def write_dataset(tmp):
     """Three 64x64 train views (a colour ramp with seeded noise, slightly
-    moved cameras), one val view, and a 150-point parquet."""
+    moved cameras), one val view, and a 150-point parquet, in ``tmp``."""
     from PIL import Image
     import pandas as pd
 
-    tmp = tmp_path_factory.mktemp("dataset")
     rng = np.random.default_rng(0)
     y, x = np.mgrid[0:64, 0:64] / 64
     records = []
