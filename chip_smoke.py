@@ -12,9 +12,9 @@ yardstick of their redesign), then:
    same inputs: a small frame (64x64, 200 points) and the full-width frame
    (428,687 points, 960x544, 32x32 tiles). The key expansion's two passes
    (slot_keys: fused keys and owners; sorted_table: the table after the
-   sort), tile_ranges (the tile ranges of the sorted keys) and
-   bucket_histogram must match bit for bit, tile_ranges also against
-   torch.searchsorted, and the fused keys,
+   sort) and tile_ranges (the tile ranges of the sorted keys) must match
+   bit for bit, tile_ranges also against torch.searchsorted, and the fused
+   keys,
    the sort's permutation and the sorted table must equal the first
    design's keys and its pre-sort table gathered by the permutation;
    blend_forward within 1e-4 (rgb, alpha) and 5e-4 (depth), with the count
@@ -27,8 +27,7 @@ yardstick of their redesign), then:
    GaussianPointRenderer (the user's entry point; the scene goes through a
    .ply file), with every kernel's launch count set to 0 before and read
    after, and the first design's data movement (the table gather, the
-   regroup, the histogram + cumsum of the tile ranges) counted and held at
-   0; checks the frames, and one full-output frame against the plain
+   regroup) counted and held at 0; checks the frames, and one full-output frame against the plain
    blend;
 3. times the render with CUDA events after a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
@@ -97,9 +96,37 @@ yardstick of their redesign), then:
    and g rows equal to round_bf16 of the unpacked rows and the rest equal,
    K3 on the packed table against the plain blend (rgb 1e-4);
 9. runs ``tools/ftgmm.ft_grab_scene`` once on the loop's final scene:
-   finite metrics, and its time.
+   finite metrics, and its time;
+10. trains through ``parallel/data_parallel.py``'s step at full width (the
+   phase-4 scene and target), each rank a process of its own
+   (``multihost.run_local_ranks``): (a) a group of one over NCCL, one step
+   bit for bit the single-device step from the same state; (b) two ranks
+   over gloo (they share the card, and NCCL refuses two ranks on one
+   device) on the same view, 3 steps within the gradient gate (5e-4 +
+   1e-3 |single|) of 3 single-device steps and the two ranks' states
+   bit-identical; (c) the two ranks on views 0 and 1 of ``poses()``: ms a
+   step (CUDA events; two ranks sharing one card measure sharing, not
+   scaling), the step's collectives timed alone and their share, every
+   kernel once a step on each rank;
+11. one ``parallel/tile_parallel.py`` step at 1920x1088 (Truck's frame
+   cropped to 32-px tiles; two bands of 17 tile rows) on the two ranks:
+   its gradients and Adam moments within the gradient gate of the
+   single-device step at that size, its frame within 1e-4, the ranks'
+   states bit-identical, each band's key total, then ms a step and every
+   kernel once a step on each rank;
+12. ``apps/render.py``'s renderer on the two ranks over the 9 poses at
+   960x544: ``data_parallel`` (rank r renders poses r, r + 2, ...) whose
+   uint8 frames equal phase 2's bit for bit, and ``tile_parallel`` (576
+   rows rendered in two bands, cropped to 544) whose float frames hold the
+   image gate against the single-device render (rgb, alpha 1e-4, depth
+   5e-4, counts but 0.01% of pixels); K1-K3 once a frame a rank;
+13. ``parallel/mh_smoke.py``'s worker on two ranks (4 cameras a rank)
+   against ``single_process_reference`` (one process, 8 cameras): losses
+   at rtol 1e-5, Adam's first moments at the gradient gate, the visibility
+   counts exact, and the launches of 2 steps of 4 cameras a rank.
 
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after
+(in phases 10-13 by each rank, in its own process).
 In phases 1 and 1b a float64 sequential front-to-back blend of every
 tile's sorted keys (``f64_counts``) gives each pixel's and each key's
 count; ``count_check`` in the record says on how many the kernel (K3's
@@ -412,44 +439,48 @@ LOSS = 0.1  # the share of a name's events a window may lose
 WINDOWS = {"taken": 0, "retaken": 0, "events_lost": 0}
 
 
-def per_call(rows, reps: int):
-    """A window's rows as [(name, device us a call, launches a call)], or
-    None if the profiler lost more than LOSS of some name's events. A
-    name's launches a call is its count over reps, rounded; its time a call
-    is the mean of the events the window kept times that. A name with
-    fewer events than half the calls is not launched by every call and
-    counts as it stands."""
-    out = []
+def per_call(rows, reps: int, expect: tuple):
+    """A window's rows as ([(name, device us a call, launches a call)],
+    events the window lost), or None if it lost more than LOSS of the
+    events of a name that holds a string of ``expect``.
+
+    A name's launches a call is its count over reps, rounded (k). A name
+    whose count is a little short of k a call (by at most LOSS) lost some
+    events: its time a call is the mean of the events the window kept
+    times k. An expected name (one every call launches a whole number of
+    times) with any other count fails the window; any other name (a copy
+    or a set whose count may depend on the data, or one that not every
+    call launches) counts as it stands."""
+    out, lost = [], 0
     for name, us, n in rows:
         k = round(n / reps)
-        if k == 0:
-            out.append((name, us / reps, n / reps))
-        elif (1 - LOSS) * k * reps <= n <= k * reps:
+        if k >= 1 and (1 - LOSS) * k * reps <= n <= k * reps:
             out.append((name, us / n * k, k))
-        else:
+            lost += k * reps - n
+        elif k >= 1 and any(e in name for e in expect):
             return None
-    return out
+        else:
+            out.append((name, us / reps, n / reps))
+    return out, lost
 
 
 def profiled(fn, reps: int, expect: tuple):
     """profile_device over reps calls of fn: (wall ms, per_call rows) of a
     window in which each string of expect is part of the name of an event
     every call launches. The profiler now and then loses a few of a call's
-    events: a window that lost at most LOSS of each name's is read as
-    ``per_call`` says, one that lost more is taken again, and a third such
-    window fails the run."""
+    events: a window that lost at most LOSS of each expected name's is
+    read as ``per_call`` says, one that lost more is taken again, and a
+    third such window fails the run."""
     for attempt in range(3):
         WINDOWS["taken"] += 1
         WINDOWS["retaken"] += attempt > 0
         wall_ms, rows = profile_device(fn, reps)
-        calls = per_call(rows, reps)
-        if calls is not None and all(
-                sum(k for name, _, k in calls if e in name) >= 1
+        read = per_call(rows, reps, expect)
+        if read is not None and all(
+                sum(k for name, _, k in read[0] if e in name) >= 1
                 for e in expect):
-            WINDOWS["events_lost"] += sum(
-                round(n / reps) * reps - n for _, _, n in rows
-                if n >= reps / 2)
-            return wall_ms, calls
+            WINDOWS["events_lost"] += read[1]
+            return wall_ms, read[0]
     held = sorted({f"{name[:70]} x{n}" for name, _, n in rows})
     raise AssertionError(f"three profiler windows of {reps} calls lacked some "
                          f"of {expect} or lost over {LOSS:.0%} of a name's "
@@ -484,19 +515,6 @@ def both_ms(fn, reps: int, expect: tuple) -> dict:
     the host's and the device's time) beside its device ms."""
     return {"wall_ms": cuda_ms(fn, reps),
             "device_ms": device_ms(fn, reps, expect)}
-
-
-def old_tile_ranges(fused_s, dbits: int, num_tiles: int) -> torch.Tensor:
-    """The tile ranges as the main path computed them before tile_ranges:
-    a zero fill, bucket_histogram of the shifted keys, a second zero fill,
-    the cumsum and a slice copy (the first design of ops/tiling.py)."""
-    from taichi_3d_gaussian_splatting_tpu_torch.ops import histogram
-
-    hist = histogram.bucket_histogram(fused_s >> dbits, num_tiles)
-    bounds = torch.zeros((num_tiles + 1,), dtype=torch.int32,
-                         device=fused_s.device)
-    bounds[1:] = torch.cumsum(hist, 0)
-    return bounds
 
 
 def stage_ms(renderer, q, t) -> dict:
@@ -546,9 +564,6 @@ def stage_ms(renderer, q, t) -> dict:
                                         ("sorted_table_kernel(",))
     table_s = k1b()
 
-    out["bucket_histogram (K2) + cumsum (the old chain)"] = both_ms(
-        lambda: old_tile_ranges(fused_s, dbits, num_tiles), reps,
-        ("histogram_kernel(",))
     out["tile_ranges (K2)"] = both_ms(
         lambda: histogram.tile_ranges(fused_s, dbits, num_tiles), reps,
         ("tile_ranges_kernel(",))
@@ -567,12 +582,10 @@ def stage_ms(renderer, q, t) -> dict:
 
 @contextlib.contextmanager
 def first_design_calls():
-    """Counts, while open, what the first design ran around K1, K2 and K5
-    and this one must not: a (16, total) table's index_select along its
-    keys (the gather after the sort), ``tiling.regroup_rows_by_slot``,
-    segment_reduce on pre-sort rows and bucket_histogram (the histogram
-    whose cumsum gave the tile ranges)."""
-    from taichi_3d_gaussian_splatting_tpu_torch.ops import histogram
+    """Counts, while open, what the first design ran around K1 and K5 and
+    this one must not: a (16, total) table's index_select along its keys
+    (the gather after the sort), ``tiling.regroup_rows_by_slot`` and
+    segment_reduce on pre-sort rows."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
     from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
 
@@ -592,7 +605,6 @@ def first_design_calls():
         return index_select
 
     before = sr.segment_reduce.launches
-    before_hist = histogram.bucket_histogram.launches
     tiling.regroup_rows_by_slot = count_regroup
     torch.Tensor.index_select = counted(selects[0])
     torch.index_select = counted(selects[1])
@@ -603,8 +615,6 @@ def first_design_calls():
         torch.Tensor.index_select, torch.index_select = selects
         calls["segment_reduce on pre-sort rows"] = (sr.segment_reduce.launches
                                                     - before)
-        calls["bucket_histogram (histogram_kernel)"] = (
-            histogram.bucket_histogram.launches - before_hist)
 
 
 def device_busy(fn, reps: int, expect: tuple) -> dict:
@@ -751,12 +761,6 @@ def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
     errs = {"expand_keys": check_expand(frame, label, first)}
 
     ids = frame.tile_ids
-    hist = histogram.bucket_histogram(ids, frame.num_tiles)
-    hist_p = histogram.bucket_histogram_plain(ids, frame.num_tiles)
-    if not torch.equal(hist, hist_p):
-        raise AssertionError(f"{label}: bucket_histogram differs")
-    errs["bucket_histogram"] = max_abs(hist, hist_p)
-
     fused = frame.keys.fused
     bounds = histogram.tile_ranges(fused, frame.dbits, frame.num_tiles)
     pairs = {
@@ -765,8 +769,6 @@ def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
         "torch.searchsorted": torch.searchsorted(ids, torch.arange(
             frame.num_tiles + 1, dtype=torch.int32,
             device=ids.device)).int(),
-        "the old chain": old_tile_ranges(fused, frame.dbits,
-                                         frame.num_tiles),
         "the main path's tile_start": torch.cat([
             frame.keys.tile_start, frame.keys.tile_end[-1:]]),
     }
@@ -1928,6 +1930,500 @@ def run_ftgmm(scene, tmp: Path) -> dict:
             "ftgmm_plots": pngs}
 
 
+# --- phases 10-13: several ranks on the card ---------------------------------
+#
+# Each rank is a process that multihost.run_local_ranks spawns (rank
+# functions below, at module level so a spawned process can import them).
+# Two ranks share the one card, so they run over gloo; a group of one runs
+# over NCCL. A rank counts its own kernel launches around each path, so the
+# counts are per rank. Times of two ranks on one card measure sharing, not
+# scaling.
+
+TP_HEIGHT, TP_WIDTH = 1088, 1920   # Truck's frame cropped to 32-px tiles
+GRAD_GATE = (5e-4, 1e-3)          # atol, rtol: the JAX package's gate
+B1 = 0.9
+
+
+def rank_kernels() -> dict:
+    """The kernels of the train path by their launch counters."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import (
+        blend, expand, histogram, segment_reduce as sr,
+    )
+
+    return {"slot_keys": expand.slot_keys,
+            "sorted_table": expand.sorted_table,
+            "tile_ranges": histogram.tile_ranges,
+            "blend_forward": blend.blend_forward,
+            "blend_backward": blend.blend_backward,
+            "segment_reduce_sorted": sr.segment_reduce_sorted}
+
+
+def state_leaves(state) -> dict:
+    out = {"features": state.scene.features, "xyz": state.scene.xyz,
+           "feat_mu": state.feat_opt.mu, "feat_nu": state.feat_opt.nu,
+           "pos_mu": state.pos_opt.mu, "pos_nu": state.pos_opt.nu}
+    out.update({f"ctrl_{f}": getattr(state.ctrl, f)
+                for f in state.ctrl._fields})
+    return out
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(state_leaves(state).items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gate_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| - (atol + rtol |want|): <= 0 inside the
+    gradient gate."""
+    atol, rtol = GRAD_GATE
+    d = (got.double() - want.double()).abs()
+    return float((d - (atol + rtol * want.double().abs())).max())
+
+
+def view_targets(state, feats, camera, pose_ids, cfg_kw) -> list:
+    """(gt uint8, q, t, K) of each pose of ``poses()``: targets rendered
+    as train_setup's (seeded noise, sigma 0.3, on the DC colours) at that
+    pose."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+        se3_to_qt,
+    )
+
+    n = feats.shape[0]
+    rng = np.random.default_rng(11)
+    feats_gt = feats.copy()
+    feats_gt[:, [8, 24, 40]] += rng.normal(0.0, 0.3, (n, 3)).astype(
+        np.float32)
+    dev = state.scene.xyz.device
+    fg = torch.from_numpy(feats_gt).to(dev)
+    qs, ts = se3_to_qt(torch.from_numpy(poses(max(pose_ids) + 1)).to(dev))
+    out = []
+    for i in pose_ids:
+        q, t = qs[i].contiguous(), ts[i].contiguous()
+        rgb = R.rasterize(state.scene.xyz, fg, state.scene.invalid, q, t,
+                          camera, R.RasterizerConfig(rgb_only=True,
+                                                     **cfg_kw)).rgb
+        gt = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255).to(torch.uint8)
+        out.append((gt, q, t, camera.K))
+    return out
+
+
+def full_camera(height: int, width: int, dev):
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    f = 580.0 * width / WIDTH
+    K = torch.tensor([[f, 0.0, width / 2], [0.0, f, height / 2],
+                      [0.0, 0.0, 1.0]], device=dev)
+    return R.Camera(K, width, height)
+
+
+def rank_setup(height=HEIGHT, width=WIDTH):
+    """The phase-4 scene and train config on this rank's card."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    R.pin_f32_matmul()
+    dev = mh.rank_device("cuda")
+    xyz, feats = truck_scene_surround(N_POINTS)
+    camera = full_camera(height, width, dev)
+    config, step, state, inputs = train_setup(xyz, feats, camera,
+                                              {"tile_size": TILE})
+    return dev, feats, camera, config, step, state, inputs
+
+
+def dp_one_rank() -> dict:
+    """Phase 10a (a group of one, NCCL): one data-parallel step and one
+    single-device step from the same state and view."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    dev, _, _, config, step, state, inputs = rank_setup()
+    gt, q, t, K, band = inputs
+    dp = make_dp_train_step(config, HEIGHT, WIDTH, device=dev)
+    single, m1, _ = step(state, *inputs)
+    kernels = rank_kernels()
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    new, m2, _ = dp(state, gt[None], q[None], t[None], K[None], band)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    a, b = state_leaves(single), state_leaves(new)
+    return {"backend": dist.get_backend(),
+            "unequal_leaves": [k for k in a if not torch.equal(a[k], b[k])],
+            "losses": [float(m1["loss"]), float(m2["loss"])],
+            "launches": launches,
+            "collectives": [(c.op, c.numel) for c in dp.collectives]}
+
+
+def _collectives_ms(collectives, dev, reps=10) -> float:
+    """Host ms of one step's collectives alone (same ops, sizes, dtypes),
+    between device syncs: gloo copies CUDA tensors through the host."""
+    import torch.distributed as dist
+
+    bufs = [(torch.zeros(c.numel, dtype=c.dtype, device=dev),
+             {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[c.op])
+            for c in collectives]
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for buf, op in bufs:
+            dist.all_reduce(buf, op=op)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _timed_steps(fn, warm: int, timed: int, kernels) -> tuple:
+    """(ms a call by CUDA events, launches a call) of fn after warm-up."""
+    import torch.distributed as dist
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_launches(kernels)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / timed,
+            {k: v / timed for k, v in read_launches(kernels).items()})
+
+
+def two_ranks(ply: str) -> dict:
+    """Phases 10b, 10c, 11 and 12 on this rank of two (gloo, one card);
+    ``ply``: the phase-4 scene as a .ply file, for the renderer."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    rank = mh.rank()
+    out = {"backend": dist.get_backend(), "rank": rank}
+    kernels = rank_kernels()
+    dev, feats, camera, config, step, state0, inputs = rank_setup()
+    gt, q, t, K, band = inputs
+    dp = make_dp_train_step(config, HEIGHT, WIDTH, device=dev)
+
+    # 10b: both ranks on the same view, 3 steps, against 3 single steps
+    s, ref = state0, state0
+    for _ in range(3):
+        s, m, _ = dp(s, gt[None], q[None], t[None], K[None], band)
+        ref, _, _ = step(ref, *inputs)
+    a, b = state_leaves(s), state_leaves(ref)
+    out["10b"] = {
+        "digest": state_digest(s), "loss": float(m["loss"]),
+        "gate_excess": {k: gate_excess(a[k], b[k])
+                        for k in ("features", "xyz", "feat_mu", "pos_mu")},
+        "max_abs": {k: max_abs(a[k], b[k]) for k in a
+                    if k != "ctrl_num_in_camera"},
+        "num_in_camera_doubled": bool(torch.equal(
+            a["ctrl_num_in_camera"], 2 * b["ctrl_num_in_camera"]))}
+    del s, ref, a, b
+
+    # 10c: rank r trains view r (poses()[r]); timed
+    (gt_r, q_r, t_r, K_r), = view_targets(state0, feats, camera, [rank],
+                                          {"tile_size": TILE})
+    cur = {"s": state0}
+
+    def dp_step():
+        cur["s"], metrics, _ = dp(cur["s"], gt_r[None], q_r[None],
+                                  t_r[None], K_r[None], band)
+        return metrics
+
+    ms, launches = _timed_steps(dp_step, 2, 10, kernels)
+    coll_ms = _collectives_ms(dp.collectives, dev)
+    out["10c"] = {"ms_per_step": ms, "launches_per_step": launches,
+                  "collectives": [(c.op, c.numel) for c in dp.collectives],
+                  "collectives_ms": coll_ms, "allreduce_share": coll_ms / ms,
+                  "digest": state_digest(cur["s"]),
+                  "loss": float(dp_step()["loss"])}
+    del cur, state0, dp
+    torch.cuda.empty_cache()
+    out["11"] = tp_phase(kernels)
+    torch.cuda.empty_cache()
+    out["12"] = render_phase(ply)
+    return out
+
+
+def tp_phase(kernels) -> dict:
+    """Phase 11: the band-parallel step at 1920x1088 (two bands of 17 tile
+    rows) against the single-device step at that size."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (
+        make_tp_train_step,
+    )
+
+    dev, _, camera, config, step, state0, inputs = rank_setup(
+        TP_HEIGHT, TP_WIDTH)
+    tp = make_tp_train_step(config, TP_HEIGHT, TP_WIDTH, device=dev)
+    zero_launches(kernels)
+    new, metrics, aux = tp(state0, *inputs)
+    torch.cuda.synchronize()
+    first_launches = read_launches(kernels)
+    band_keys = aux["band_keys"]
+    single, m1, aux1 = step(state0, *inputs)
+    grads = {k: gate_excess(aux[k], aux1[k])
+             for k in ("grad_features", "grad_xyz")}
+    a, b = state_leaves(new), state_leaves(single)
+    res = {"band_keys": band_keys, "num_keys": int(metrics["num_keys"]),
+           "single_num_keys": int(m1["num_keys"]),
+           "losses": [float(metrics["loss"]), float(m1["loss"])],
+           "grad_gate_excess": grads,
+           "mu_gate_excess": {k: gate_excess(a[k], b[k])
+                              for k in ("feat_mu", "pos_mu")},
+           "max_abs": {k: max_abs(a[k], b[k]) for k in a},
+           "num_in_camera_equal": bool(torch.equal(
+               a["ctrl_num_in_camera"], b["ctrl_num_in_camera"])),
+           "pred_max_abs": max_abs(aux["pred"], aux1["pred"]),
+           "launches_first_step": first_launches,
+           "digest": state_digest(new)}
+    del new, single, aux, aux1
+    cur = {"s": state0}
+
+    def tp_step():
+        cur["s"], _, _ = tp(cur["s"], *inputs)
+
+    res["ms_per_step"], res["launches_per_step"] = _timed_steps(
+        tp_step, 1, 5, kernels)
+    res["collectives"] = [(c.op, c.numel) for c in tp.collectives]
+    return res
+
+
+def render_phase(ply: str) -> dict:
+    """Phase 12: ``apps/render.py``'s renderer on two ranks, pose-sharded
+    (its uint8 frames) and band-split at 960x544 (576 rows rendered,
+    cropped to 544: rank 0's float frames against its own single-device
+    render)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.apps import render
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (
+        rasterize_band_sharded,
+    )
+
+    kernels = {k: v for k, v in rank_kernels().items()
+               if k in ("slot_keys", "sorted_table", "tile_ranges",
+                        "blend_forward")}
+    K_np = np.asarray([[580.0, 0.0, WIDTH / 2], [0.0, 580.0, HEIGHT / 2],
+                       [0.0, 0.0, 1.0]], np.float32)
+    pose_list = poses(9)
+    res = {}
+    for mode in ("data_parallel", "tile_parallel"):
+        cfg = render.RendererConfig(parquet_paths=[ply], image_height=HEIGHT,
+                                    image_width=WIDTH, camera_intrinsics=K_np,
+                                    **{mode: True})
+        renderer = render.GaussianPointRenderer(cfg, pose_list, device="cuda")
+        torch.cuda.synchronize()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        frames = dict(renderer.frames())
+        torch.cuda.synchronize()
+        res[mode] = {"frames": frames, "s": time.perf_counter() - t0,
+                     "launches": read_launches(kernels)}
+    # the band render's float frames against the single-device render
+    s = renderer.scene
+    qs, ts = render.se3_to_qt(renderer.poses)
+    band = TILE * mh.world_size()
+    worst = {"rgb": 0.0}
+    for i in range(len(pose_list)):
+        out = rasterize_band_sharded(s.xyz, s.features, s.invalid, qs[i],
+                                     ts[i], renderer.camera, renderer.rcfg,
+                                     point_object_id=s.object_id)
+        ref = renderer.render(qs[i], ts[i])
+        worst["rgb"] = max(worst["rgb"], max_abs(
+            torch.clamp(out.rgb, 0.0, 1.0), ref))
+    full = R.RasterizerConfig(tile_size=TILE)
+    out = rasterize_band_sharded(s.xyz, s.features, s.invalid, qs[1], ts[1],
+                                 renderer.camera, full,
+                                 point_object_id=s.object_id)
+    ref = R.rasterize(s.xyz, s.features, s.invalid, qs[1], ts[1],
+                      renderer.camera, full, point_object_id=s.object_id)
+    for f in ("alpha", "depth"):
+        worst[f] = max_abs(getattr(out, f), getattr(ref, f))
+    worst["count_differs"] = int((out.count != ref.count).sum())
+    res["tile_parallel"]["float_max_abs"] = worst
+    res["padded_height"] = -(-HEIGHT // band) * band
+    return res
+
+
+def mh_rank() -> dict:
+    """Phase 13: parallel/mh_smoke.py's worker on this rank of two (the
+    group is formed already, so ``run_worker`` joins it as it is)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import mh_smoke
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    kernels = rank_kernels()
+    zero_launches(kernels)
+    res = mh_smoke.run_worker(None, 2, mh.rank(), 2, None, device="cuda")
+    torch.cuda.synchronize()
+    res["launches"] = read_launches(kernels)
+    return res
+
+
+def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
+    """Phases 10-13 (rank functions above), checked against their gates;
+    ``frames``: phase 2's uint8 frames of ``poses(9)``."""
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import mh_smoke
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    out = {}
+    phase("phase 10: data-parallel train steps at full width")
+    t0 = time.perf_counter()
+    (one,) = mh.run_local_ranks(dp_one_rank, 1, device="cuda",
+                                timeout_s=600)
+    print(f"  10a (1 rank, {one['backend']}): losses {one['losses']}, "
+          f"leaves unequal to the single-device step {one['unequal_leaves']}"
+          f", launches {one['launches']}, collectives {one['collectives']} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    if one["backend"] != "nccl" or one["unequal_leaves"]:
+        raise AssertionError("10a: the DP step over NCCL is not the "
+                             "single-device step bit for bit")
+    if any(v != 1 for v in one["launches"].values()):
+        raise AssertionError(f"10a launches {one['launches']}")
+    out["dp_world1"] = one
+
+    ply = str(tmp / "scene12.ply")
+    scene_lib.to_ply(scene_lib.create_scene(xyz, scene_lib.SceneConfig(),
+                                            features=feats, device="cpu"),
+                     ply)
+    t0 = time.perf_counter()
+    ranks = mh.run_local_ranks(two_ranks, 2, args=(ply,), device="cuda",
+                               timeout_s=900)
+    secs = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError("two ranks on one card must run over gloo")
+    b = [r["10b"] for r in ranks]
+    print(f"  10b (2 ranks, same view, 3 steps): digests equal "
+          f"{b[0]['digest'] == b[1]['digest']}, gate excess "
+          f"{b[0]['gate_excess']}, max |d| {b[0]['max_abs']}", flush=True)
+    if b[0]["digest"] != b[1]["digest"]:
+        raise AssertionError("10b: the ranks' states differ")
+    if max(b[0]["gate_excess"].values()) > 0 or not b[0][
+            "num_in_camera_doubled"]:
+        raise AssertionError("10b: outside the gradient gate")
+    c = [r["10c"] for r in ranks]
+    print(f"  10c (2 ranks, views 0 and 1, sharing one card): "
+          f"{[x['ms_per_step'] for x in c]} ms a step, collectives "
+          f"{[x['collectives_ms'] for x in c]} ms ({c[0]['collectives']}), "
+          f"share {[x['allreduce_share'] for x in c]}, launches a step "
+          f"{[x['launches_per_step'] for x in c]}", flush=True)
+    if c[0]["digest"] != c[1]["digest"]:
+        raise AssertionError("10c: the ranks' states differ")
+    for x in c:
+        if any(v != 1 for v in x["launches_per_step"].values()):
+            raise AssertionError(f"10c launches {x['launches_per_step']}")
+    out["dp_two_ranks"] = {"same_view": b[0], "two_views": c}
+
+    phase("phase 11: band-parallel train step at 1920x1088")
+    tp = [r["11"] for r in ranks]
+    print(f"  band keys {[x['band_keys'] for x in tp]} (single-device "
+          f"{tp[0]['single_num_keys']}), losses {tp[0]['losses']}, grad "
+          f"gate excess {tp[0]['grad_gate_excess']}, mu {tp[0]['mu_gate_excess']}"
+          f", pred {tp[0]['pred_max_abs']:.3g}; {[x['ms_per_step'] for x in tp]}"
+          f" ms a step, launches a step {[x['launches_per_step'] for x in tp]}",
+          flush=True)
+    if tp[0]["digest"] != tp[1]["digest"]:
+        raise AssertionError("11: the ranks' states differ")
+    if (max(tp[0]["grad_gate_excess"].values()) > 0
+            or max(tp[0]["mu_gate_excess"].values()) > 0
+            or not tp[0]["num_in_camera_equal"]
+            or tp[0]["pred_max_abs"] > 1e-4):
+        raise AssertionError("11: outside the gradient gate")
+    for x in tp:
+        if x["band_keys"] < 1 or any(
+                v != 1 for v in x["launches_per_step"].values()):
+            raise AssertionError(f"11: band keys {x['band_keys']}, "
+                                 f"launches {x['launches_per_step']}")
+    out["tp"] = tp
+
+    phase("phase 12: the render app on two ranks")
+    r12 = [r["12"] for r in ranks]
+    dp_frames = {}
+    for r in r12:
+        dp_frames.update(r["data_parallel"]["frames"])
+    if sorted(dp_frames) != sorted(frames):
+        raise AssertionError(f"12: data-parallel frames {sorted(dp_frames)}")
+    bad = [i for i in frames if not np.array_equal(dp_frames[i], frames[i])]
+    tp_frames = r12[0]["tile_parallel"]["frames"]
+    fl = r12[0]["tile_parallel"]["float_max_abs"]
+    print(f"  data_parallel: {[sorted(r['data_parallel']['frames']) for r in r12]}"
+          f" frames by rank, {len(bad)} differ from phase 2's; launches "
+          f"{[r['data_parallel']['launches'] for r in r12]}; tile_parallel: "
+          f"{len(tp_frames)} frames on rank 0 ({r12[0]['padded_height']} rows"
+          f" rendered), float max |d| {fl}; launches "
+          f"{[r['tile_parallel']['launches'] for r in r12]} "
+          f"[{secs:.1f} s for phases 10b-12]", flush=True)
+    if bad:
+        raise AssertionError(f"12: data-parallel frames {bad} differ")
+    if (sorted(tp_frames) != sorted(frames) or r12[1]["tile_parallel"][
+            "frames"] or any(f.shape != (HEIGHT, WIDTH, 3)
+                             for f in tp_frames.values())):
+        raise AssertionError("12: tile-parallel frames")
+    if (fl["rgb"] > 1e-4 or fl["alpha"] > 1e-4 or fl["depth"] > 5e-4
+            or fl["count_differs"] > 1e-4 * HEIGHT * WIDTH):
+        raise AssertionError("12: band render outside the image gate")
+    for rank, r in enumerate(r12):
+        n_dp = len(r["data_parallel"]["frames"])
+        if (any(v != n_dp for v in r["data_parallel"]["launches"].values())
+                or any(v != len(frames) for v in r["tile_parallel"][
+                    "launches"].values())):
+            raise AssertionError(f"12: rank {rank} launches")
+    for r in r12:
+        for mode in ("data_parallel", "tile_parallel"):
+            r[mode]["frames"] = sorted(r[mode]["frames"])
+    out["render"] = r12
+
+    phase("phase 13: mh_smoke, two processes against one")
+    mh_ranks = mh.run_local_ranks(mh_rank, 2, device="cuda", timeout_s=600)
+    ref = mh_smoke.single_process_reference(2, device="cuda")
+    got = mh_ranks[0]
+    excess = {k: gate_excess(torch.from_numpy(got[k]) / (1 - B1),
+                             torch.from_numpy(ref[k]) / (1 - B1))
+              for k in ("feat_mu", "pos_mu")}
+    res13 = {"losses": got["losses"].tolist(),
+             "ref_losses": ref["losses"].tolist(), "mu_gate_excess": excess,
+             "features_max_abs": float(np.abs(got["features"]
+                                              - ref["features"]).max()),
+             "xyz_max_abs": float(np.abs(got["xyz"] - ref["xyz"]).max()),
+             "launches": [r["launches"] for r in mh_ranks]}
+    print(f"  {res13}", flush=True)
+    if (not np.allclose(got["losses"], ref["losses"], rtol=1e-5, atol=0)
+            or max(excess.values()) > 0
+            or not np.array_equal(got["num_in_camera"], ref["num_in_camera"])
+            or not np.array_equal(mh_ranks[1]["features"], got["features"])):
+        raise AssertionError("13: outside the gradient gate")
+    steps_rows = 2 * mh_smoke.TOTAL_DEVICES // 2
+    for r in mh_ranks:
+        if any(v != steps_rows for v in r["launches"].values()):
+            raise AssertionError(f"13: launches {r['launches']}")
+    out["mh_smoke"] = res13
+    return out
+
+
 # --- main -------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2144,34 +2640,14 @@ def main(argv=None) -> int:
                              else EW)
                 for n, (_, p) in timed.items() if p is not None}
     plain_ms["blend_backward"] = k4_plain_ms  # its one call in phase 1b
-    # K2's first design, off the main path now: its kernel, the chain the
-    # main path ran (zero fills, kernel, cumsum, copy) and the library call
-    # of its histogram half
     queries = torch.arange(full.num_tiles + 1, dtype=torch.int32,
                            device=dev)
     searchsorted_ms = device_ms(lambda: torch.searchsorted(
         full.tile_ids, queries, out_int32=True), reps=50,
         expect=("searchsorted",))
-    old_chain = lambda: old_tile_ranges(  # noqa: E731
-        fused_s, full.dbits, full.num_tiles)
-    k2_first = {
-        "histogram_kernel_ms": kernel_ms(
-            lambda: histogram.bucket_histogram(full.tile_ids,
-                                               full.num_tiles),
-            "histogram_kernel", reps=50),
-        "old_chain_device_ms": device_ms(old_chain, reps=50,
-                                         expect=("histogram_kernel(",)),
-        "old_chain_wall_ms": cuda_ms(old_chain, reps=50, warmup=5),
-        "tile_ranges_wall_ms": call_ms["tile_ranges"],
-        "bincount_ms": device_ms(
-            lambda: torch.bincount(full.tile_ids, minlength=full.num_tiles),
-            reps=50, expect=("Histogram",)),
-        "bucket_histogram_max_abs_err": errs["bucket_histogram"],
-    }
     print(f"  K2: tile_ranges {ms['tile_ranges']:.5f} ms (device), "
-          f"{call_ms['tile_ranges']:.5f} ms (events); the first design "
-          f"{k2_first}; torch.searchsorted {searchsorted_ms:.5f} ms",
-          flush=True)
+          f"{call_ms['tile_ranges']:.5f} ms (events); torch.searchsorted "
+          f"{searchsorted_ms:.5f} ms", flush=True)
     lengths = k.counts.long()
 
     def segment_reduce_library():
@@ -2215,6 +2691,9 @@ def main(argv=None) -> int:
                                  Path(work_dir.name))
     phase("phase 9: ft_grab_scene on the loop's final scene")
     ftgmm = run_ftgmm(loop_scene, Path(work_dir.name))
+    # phases 10-13: ranks in processes of their own, each counting its
+    # launches around each path
+    multi = run_multi_rank(xyz, feats, frames, Path(work_dir.name), phase)
     work_dir.cleanup()
 
     # bounds: each input read once, each output written once, and the
@@ -2293,6 +2772,27 @@ def main(argv=None) -> int:
                                           for c in counters),
             "launches_dataset_frames": sum(dataset["dataset_launches"][c]
                                            for c in counters),
+            # phases 10-13, per rank: a DP step (a group of one over NCCL;
+            # two ranks over gloo), a band-parallel step at 1920x1088, the
+            # render app's 9 frames pose-sharded and band-split, mh_smoke's
+            # 2 steps of 4 cameras a rank
+            "launches_dp_step_world1": sum(
+                multi["dp_world1"]["launches"][c] for c in counters),
+            "launches_dp_step_per_rank": [
+                sum(r["launches_per_step"][c] for c in counters)
+                for r in multi["dp_two_ranks"]["two_views"]],
+            "launches_tp_step_per_rank": [
+                sum(r["launches_per_step"][c] for c in counters)
+                for r in multi["tp"]],
+            "launches_render_dp_per_rank": [
+                sum(r["data_parallel"]["launches"].get(c, 0)
+                    for c in counters) for r in multi["render"]],
+            "launches_render_tp_per_rank": [
+                sum(r["tile_parallel"]["launches"].get(c, 0)
+                    for c in counters) for r in multi["render"]],
+            "launches_mh_smoke_per_rank": [
+                sum(r[c] for c in counters)
+                for r in multi["mh_smoke"]["launches"]],
             "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -2301,8 +2801,6 @@ def main(argv=None) -> int:
         })
         if name in order_ms:
             rows[-1]["tile_order_ms"] = order_ms[name]
-        if name == "tile_ranges":
-            rows[-1]["first_design"] = k2_first
 
     record = {
         "card": card, "points": N_POINTS, "image": [WIDTH, HEIGHT],
@@ -2316,13 +2814,14 @@ def main(argv=None) -> int:
                          if k_ != "tile_block_keys"},
         "launches_per_frame": {n: launches[n] / len(pose_list)
                                for n in launches},
-        "k2_first_design": k2_first, "searchsorted_ms": searchsorted_ms,
+        "searchsorted_ms": searchsorted_ms,
         "segment_reduce_library_ms": segment_reduce_lib_ms,
         "kernel_call_wall_ms": call_ms, "first_design_stage_ms": design_ms,
         "render_first_design_calls": off_path,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
         **train, **loop, **pose, **viewer, **dataset, **ftgmm,
+        "multi_rank": multi,
         "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
     }
@@ -2336,7 +2835,10 @@ def main(argv=None) -> int:
           f"window), {loop['loop_iteration_ms']} ms a plain one by size; "
           f"pose-refining step {pose['pose_ms_per_step']:.3f} ms; viewer "
           f"frame {viewer['viewer_frame_ms_median']:.2f} ms (median); "
-          f"ftgmm {ftgmm['ftgmm_ms']:.1f} ms", flush=True)
+          f"ftgmm {ftgmm['ftgmm_ms']:.1f} ms; two ranks sharing the card: "
+          f"DP step {[r['ms_per_step'] for r in multi['dp_two_ranks']['two_views']]}"
+          f" ms, band-parallel step at 1920x1088 "
+          f"{[r['ms_per_step'] for r in multi['tp']]} ms", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

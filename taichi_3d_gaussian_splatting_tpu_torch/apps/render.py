@@ -11,6 +11,14 @@ Each frame runs ``rasterize(..., rgb_only=True)`` on the card: the tile
 keys are sized to the frame's exact total, so unlike the JAX renderer no
 key capacity is probed up front.
 
+``--data_parallel`` spreads the poses over the ranks of a process group
+(rank r renders poses r, r + world, ...; each rank writes its own frames)
+and ``--tile_parallel`` splits every frame into bands of 32-px tile rows,
+one a rank (the height is padded up to a multiple of 32 * ranks and the
+frame cropped back; rank 0 writes it). The group is ``torchrun``'s when
+it launched the command; otherwise one local rank is spawned a visible
+card. With one rank either flag is the plain loop.
+
     python -m taichi_3d_gaussian_splatting_tpu_torch.apps.render \\
         --parquet_path scene.ply --poses poses.pt --output_prefix frames
     python -m taichi_3d_gaussian_splatting_tpu_torch.apps.render \\
@@ -43,6 +51,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
     quaternion_to_rotation_matrix,
     se3_to_qt,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.parallel import multihost as mh
 
 TILE = 32
 
@@ -85,16 +94,14 @@ def load_scene(path: str, device) -> scene_lib.GaussianScene:
 
 
 class GaussianPointRenderer:
-    """Renders every pose of a pose list with one scene on one device."""
+    """Renders every pose of a pose list with one scene, on one device or
+    (``data_parallel`` / ``tile_parallel``) on the ranks of the process
+    group, each on its own device (``multihost.rank_device``)."""
 
     def __init__(self, config: RendererConfig, poses: np.ndarray,
                  device="cuda"):
-        if config.data_parallel or config.tile_parallel:
-            raise NotImplementedError(
-                "data-parallel and tile-parallel rendering are not ported "
-                "yet; they come with the multi-device slice (ROADMAP.md)")
         self.config = config
-        self.device = torch.device(device)
+        self.device = mh.rank_device(device)
         self.height = config.image_height - config.image_height % TILE
         self.width = config.image_width - config.image_width % TILE
         pin_f32_matmul()
@@ -117,12 +124,66 @@ class GaussianPointRenderer:
                         self.rcfg, sh_max_band=3, point_object_id=s.object_id)
         return torch.clamp(out.rgb, 0.0, 1.0)
 
+    @staticmethod
+    def _to_frame(rgb: torch.Tensor) -> np.ndarray:
+        return torch.round(rgb * 255).to(torch.uint8).cpu().numpy()
+
     def frames(self):
-        """Yield (index, (H, W, 3) uint8 numpy frame) for every pose."""
+        """Yield (index, (H, W, 3) uint8 numpy frame) for every pose this
+        rank owns: all of them on one rank; with ``data_parallel`` every
+        world-th; with ``tile_parallel``, or with neither flag on several
+        ranks, all of them on rank 0 and none elsewhere."""
         qs, ts = se3_to_qt(self.poses)
+        world = mh.world_size()
+        if self.config.data_parallel and world > 1:
+            yield from self._frames_sharded(qs, ts, world)
+            return
+        if self.config.tile_parallel and world > 1:
+            yield from self._frames_band_sharded(qs, ts, world)
+            return
+        if mh.is_main():
+            yield from self._frames_plain(qs, ts)
+
+    def _frames_plain(self, qs, ts):
         for i in range(self.poses.shape[0]):
-            rgb = self.render(qs[i], ts[i])
-            yield i, torch.round(rgb * 255).to(torch.uint8).cpu().numpy()
+            yield i, self._to_frame(self.render(qs[i], ts[i]))
+
+    def _frames_sharded(self, qs, ts, world: int):
+        """Poses spread over the ranks: rank r renders poses r, r + world,
+        ... (the JAX renderer's pose-sharded mesh order)."""
+        for i in range(mh.rank(), self.poses.shape[0], world):
+            yield i, self._to_frame(self.render(qs[i], ts[i]))
+
+    def _frames_band_sharded(self, qs, ts, world: int):
+        """Each frame's tile rows split over the ranks (large single
+        images; ``parallel/tile_parallel.py``, which renders up to the next
+        multiple of 32 x ranks rows and crops back, so frames keep the
+        requested size), gathered on every rank and yielded on rank 0."""
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (  # noqa: E501
+            rasterize_band_sharded,
+        )
+
+        # at most one 32-px tile row a band: a short image takes fewer
+        # ranks (or the plain loop for a single band)
+        n_bands = min(world, self.height // TILE)
+        group = None
+        if n_bands < world:
+            # every rank takes part in forming the subgroup
+            group = mh.dist.new_group(list(range(max(n_bands, 1))))
+        if n_bands < 2:
+            if mh.is_main():
+                yield from self._frames_plain(qs, ts)
+            return
+        if mh.rank() >= n_bands:
+            return
+        s = self.scene
+        for i in range(self.poses.shape[0]):
+            out = rasterize_band_sharded(
+                s.xyz, s.features, s.invalid, qs[i], ts[i], self.camera,
+                self.rcfg, group=group, sh_max_band=3,
+                point_object_id=s.object_id)
+            if mh.is_main():
+                yield i, self._to_frame(torch.clamp(out.rgb, 0.0, 1.0))
 
     def run(self, output_prefix: Path):
         from PIL import Image
@@ -185,8 +246,10 @@ def main(argv=None):
                         help="with .json poses, also write the dataset's "
                         "frames here")
     parser.add_argument("--portrait_mode", action="store_true", default=False)
-    parser.add_argument("--data_parallel", action="store_true", default=False)
-    parser.add_argument("--tile_parallel", action="store_true", default=False)
+    parser.add_argument("--data_parallel", action="store_true", default=False,
+                        help="spread the poses over the ranks")
+    parser.add_argument("--tile_parallel", action="store_true", default=False,
+                        help="split each frame into bands, one a rank")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions "
                         "of the kernels")
@@ -213,7 +276,24 @@ def main(argv=None):
         config.image_width = info.camera_width
         config.image_height = info.camera_height
         config.camera_intrinsics = info.camera_intrinsics
-    GaussianPointRenderer(config, poses, device=args.device).run(output_prefix)
+    if ((args.data_parallel or args.tile_parallel)
+            and not mh.dist.is_initialized()):
+        if mh.launched_by_torchrun():
+            mh.initialize(device=args.device)
+        elif (torch.device(args.device).type == "cuda"
+              and torch.cuda.device_count() > 1):
+            mh.run_local_ranks(render_rank, torch.cuda.device_count(),
+                               args=(config, poses, output_prefix,
+                                     args.device), device=args.device)
+            return
+    render_rank(config, poses, output_prefix, args.device)
+    mh.shutdown()
+
+
+def render_rank(config: RendererConfig, poses: np.ndarray,
+                output_prefix: Path, device) -> None:
+    """Render and write this rank's frames (the whole list on one rank)."""
+    GaussianPointRenderer(config, poses, device=device).run(output_prefix)
 
 
 if __name__ == "__main__":

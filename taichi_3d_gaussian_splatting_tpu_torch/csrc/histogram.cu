@@ -1,6 +1,6 @@
-// Tile ranges of the sorted keys, and the bucket histogram they replace.
+// Tile ranges of the sorted keys, in place of a bucket histogram.
 //
-// Both replace the TPU kernel taichi_3d_gaussian_splatting_tpu/ops/
+// It replaces the TPU kernel taichi_3d_gaussian_splatting_tpu/ops/
 // histogram.py (bucket_histogram, _kernel), which reduced one-hot blocks on
 // the VPU; the JAX render path takes the exclusive cumsum of its counts of
 // the sorted tile ids as each tile's [start, end) key range, in place of
@@ -18,44 +18,7 @@
 // counts the live keys. Bound on the H100: bytes (4 B a key read, 4 B a
 // tile written); at a frame's half-million keys the launch and the ramp of
 // one wave of blocks take longer than the bytes.
-//
-// histogram_kernel (the JAX function's contract for unsorted ids; off the
-// main path): each block keeps a private histogram in shared memory, then
-// adds it to the global one. Integer atomics make the counts exact and
-// deterministic. When the buckets do not fit in shared memory the block
-// adds straight to global.
 #include <cuda_runtime.h>
-
-#define MAX_SMEM_BUCKETS 12288  // 48 KB of int counters
-
-__global__ void histogram_kernel(const int* __restrict__ ids, long long n,
-                                 int num_buckets, int* __restrict__ out) {
-  extern __shared__ int local[];
-  const bool use_smem = num_buckets <= MAX_SMEM_BUCKETS;
-  if (use_smem) {
-    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) local[b] = 0;
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int id = ids[i];
-    if (id >= 0 && id < num_buckets) {
-      if (use_smem) {
-        atomicAdd(&local[id], 1);
-      } else {
-        atomicAdd(&out[id], 1);
-      }
-    }
-  }
-  if (use_smem) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) {
-      const int c = local[b];
-      if (c != 0) atomicAdd(&out[b], c);
-    }
-  }
-}
 
 __device__ __forceinline__ int clamped_tile(int key, int dbits,
                                             int num_tiles) {
@@ -73,21 +36,6 @@ __global__ void tile_ranges_kernel(const int* __restrict__ fused, int total,
   const int lo =
       i > 0 ? clamped_tile(__ldg(fused + i - 1), dbits, num_tiles) : -1;
   for (int b = lo + 1; b <= hi; ++b) bounds[b] = (int)i;
-}
-
-// out must hold num_buckets zeros; launched on `stream`.
-extern "C" int bucket_histogram_launch(const int* ids, long long n,
-                                       int num_buckets, int* out,
-                                       cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 1056) blocks = 1056;  // 8 blocks per SM on 132 SMs
-  if (blocks < 1) blocks = 1;
-  const size_t smem =
-      num_buckets <= MAX_SMEM_BUCKETS ? (size_t)num_buckets * sizeof(int) : 0;
-  histogram_kernel<<<(unsigned)blocks, threads, smem, stream>>>(ids, n,
-                                                                num_buckets, out);
-  return (int)cudaGetLastError();
 }
 
 // fused: (total,) sorted keys >= 0; bounds: (num_tiles + 1,), every entry

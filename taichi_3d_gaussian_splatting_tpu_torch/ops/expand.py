@@ -174,6 +174,8 @@ def slot_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
     dev = offsets.device
     fused = torch.empty((total,), dtype=torch.int32, device=dev)
     owner = torch.empty((total,), dtype=torch.int32, device=dev)
+    if total == 0:  # e.g. a band no splat reaches: nothing to launch
+        return fused, owner
     launch = cuda_build.bind("expand", "slot_keys_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -218,6 +220,8 @@ def sorted_table(fused_s, perm, owner, attr_cols, *, tiles_u: int,
         return sorted_table_plain(fused_s, perm, owner, attr_cols, **kw)
     table = torch.empty((16, total), dtype=torch.float32,
                         device=fused_s.device)
+    if total == 0:
+        return table
     launch = cuda_build.bind("expand", "sorted_table_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -3,10 +3,11 @@
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/histogram.py``
 (``bucket_histogram``), whose exclusive cumsum over the sorted tile ids the
 JAX package takes as the per-tile key ranges in place of ``searchsorted``.
-The main path calls ``tile_ranges``, which computes those ranges straight
-from the sorted fused keys in one pass; ``bucket_histogram`` keeps the JAX
-function's contract for unsorted ids. CUDA tensors go to the kernels in
-``csrc/histogram.cu``; CPU tensors to the plain versions below.
+Every path calls ``tile_ranges``, which computes those ranges straight
+from the sorted fused keys in one pass: CUDA tensors go to its kernel in
+``csrc/histogram.cu``, CPU tensors to its plain version below.
+``bucket_histogram`` keeps the JAX function's contract for unsorted ids,
+in plain torch on either device (no path runs it).
 """
 from __future__ import annotations
 
@@ -17,34 +18,14 @@ import torch
 from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build
 
 
-def bucket_histogram_plain(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
-    """Counts of each id in [0, num_buckets) as int32; other ids ignored."""
-    keep = ids[(ids >= 0) & (ids < num_buckets)]
-    return torch.bincount(keep.long(), minlength=num_buckets).to(torch.int32)
-
-
 def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
-    """Counts of each bucket id in [0, num_buckets) over a 1-D int32 tensor.
-    Values outside the range are ignored."""
+    """Counts of each bucket id in [0, num_buckets) over a 1-D int32 tensor,
+    as int32. Values outside the range are ignored."""
     cuda_build.require(ids, "ids", torch.int32, 1)
     if num_buckets < 0:
         raise ValueError(f"num_buckets must be >= 0, got {num_buckets}")
-    if ids.device.type == "cpu":
-        return bucket_histogram_plain(ids, num_buckets)
-    out = torch.zeros((num_buckets,), dtype=torch.int32, device=ids.device)
-    if ids.numel() == 0 or num_buckets == 0:
-        return out
-    launch = cuda_build.bind("histogram", "bucket_histogram_launch", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p])
-    err = launch(ids.data_ptr(), ids.numel(), num_buckets, out.data_ptr(),
-                 cuda_build.stream_of(ids))
-    bucket_histogram.launches += 1
-    cuda_build.check(err, "bucket_histogram")
-    return out
-
-
-bucket_histogram.launches = 0
+    keep = ids[(ids >= 0) & (ids < num_buckets)]
+    return torch.bincount(keep.long(), minlength=num_buckets).to(torch.int32)
 
 
 def tile_ranges_plain(fused_sorted: torch.Tensor, dbits: int,

@@ -94,11 +94,17 @@ class RasterizerConfig:
 
 
 class Camera(NamedTuple):
-    """Pinhole camera. Frame: x right, y down, z forward."""
+    """Pinhole camera. Frame: x right, y down, z forward. ``row0`` > 0
+    makes it a band of a taller image: its first row is image row
+    ``row0``, and the projected v is taken relative to it (the full
+    image's v less row0, one f32 subtraction, exact for the points whose
+    centre lies in the band), so a band's pixels see the splats as the
+    full image's do."""
 
     K: torch.Tensor       # (3, 3) intrinsics
     width: int
     height: int
+    row0: int = 0
 
 
 class RasterizeOutput(NamedTuple):
@@ -195,7 +201,10 @@ def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
     q_cw, t_cw = inverse_qt(q_pc, t_pc)
     attrs = compute_point_attributes(xyz, features, q_cw, t_cw, camera.K, t_pc,
                                      sh_max_band)
-    raw = RawAttrs(uv=attrs.uv, cov2d=attrs.cov2d, conic=attrs.conic,
+    uv = attrs.uv
+    if camera.row0:
+        uv = uv - uv.new_tensor([0.0, float(camera.row0)])
+    raw = RawAttrs(uv=uv, cov2d=attrs.cov2d, conic=attrs.conic,
                    opacity=attrs.opacity, color=attrs.color,
                    depth=attrs.xyz_cam[:, 2])
     return raw, attrs.radius_xy

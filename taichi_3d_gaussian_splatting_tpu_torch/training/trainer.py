@@ -1,7 +1,8 @@
 """Training: one step, the densify and eval steps, and the training loop.
 
-Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py`` on one
-device, without ``scan_steps`` windows or multi-device training.
+Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py``, without
+``scan_steps`` windows; the multi-device steps the loop drives are in
+``parallel/``.
 
 ``make_train_step`` (without ``scan_steps``): the step runs forward
 (``rasterize_fwd_ctx``: attributes, tile keys, the blend kernel), the L1 +
@@ -189,29 +190,171 @@ def _pose_adam_row(state: TrainState, idx: int, d_delta: torch.Tensor,
     return deltas, new
 
 
+class CameraPass(NamedTuple):
+    """One camera's forward, loss and backward (``camera_pass``): the
+    gradients already carry the grad factors and the regularizer, and are
+    zero on invalid slots. ``d_delta``, ``d_q``, ``d_t`` are set when the
+    pass refined the pose."""
+
+    loss: torch.Tensor
+    l1: torch.Tensor
+    ssim: torch.Tensor
+    pred: torch.Tensor
+    out: object           # RasterizeOutput
+    ctx: object           # RenderContext
+    stats: object         # GradStats
+    d_xyz: torch.Tensor
+    d_features: torch.Tensor
+    d_delta: Optional[torch.Tensor] = None
+    d_q: Optional[torch.Tensor] = None
+    d_t: Optional[torch.Tensor] = None
+
+
+def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
+                rcfg: RasterizerConfig, lcfg, gf: torch.Tensor, sh_band,
+                delta: Optional[torch.Tensor] = None,
+                band=None) -> CameraPass:
+    """Forward (``rasterize_fwd_ctx``), the L1 + SSIM loss and the backward
+    (``rasterize_bwd``) of one camera, the single-device step's body and
+    each data-parallel row's. ``image_gt`` is f32. With ``delta`` (an se(3)
+    row) the pose is composed with it first (``apply_pose_delta``), and
+    when ``delta`` requires grad its cotangent is returned. With ``band``
+    (``parallel.tile_parallel.BandSplit``, no ``delta``) this rank renders
+    and backpropagates its band of the image, the loss sees the full image,
+    and the gradients and statistics are the full image's on every rank;
+    ``ctx`` is the band's."""
+    dev = scene.xyz.device
+    invalid, cam_pass, cfg_pass = scene.invalid, camera, rcfg
+    if band is not None:
+        invalid, cam_pass, cfg_pass = band.invalid, band.camera, band.cfg
+    xyz_in, feats_in = scene.xyz, scene.features
+    refine = delta is not None and delta.requires_grad
+    if delta is not None:
+        with torch.set_grad_enabled(refine):
+            q_used, t_used = apply_pose_delta(q, t, delta)
+        # the pose cotangent sums over pool slots, so an invalid
+        # (zero-padded) slot's NaN Jacobian would poison it: invalid
+        # slots get inert inputs (identity quaternion, a point 1 m in
+        # front of the camera). No key reaches them, so their values
+        # never show.
+        with torch.no_grad():
+            inval = scene.invalid[:, None]
+            # R(q) e_z + t, from the pose alone (no host tensor, so no
+            # copy that would wait for the device)
+            front = quaternion_to_rotation_matrix(q_used)[:, 2] + t_used
+            safe_row = torch.zeros(56, dtype=torch.float32, device=dev)
+            safe_row[3] = 1.0
+            xyz_in = torch.where(inval, front[None, :], xyz_in)
+            feats_in = torch.where(inval, safe_row[None, :], feats_in)
+        q, t = q_used.detach(), t_used.detach()
+    out, ctx, attrs_vjp = rasterize_fwd_ctx(
+        xyz_in, feats_in, invalid, q, t, cam_pass, cfg_pass,
+        sh_max_band=sh_band, point_object_id=scene.object_id,
+        with_pose_grads=refine)
+    if band is not None:
+        out = band.gather(out)
+    pred = torch.clamp(out.rgb, 0.0, 1.0)
+
+    p = pred.detach().requires_grad_(True)
+    f = scene.features.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss, l1, ssim_v = compute_loss(p, image_gt, lcfg, features=f,
+                                        invalid_mask=scene.invalid)
+        d_pred, d_feat_reg = torch.autograd.grad(loss, (p, f),
+                                                 allow_unused=True)
+    if d_feat_reg is None:  # no regularizer
+        d_feat_reg = torch.zeros_like(scene.features)
+
+    with torch.no_grad():
+        # the clamp's backward: zero where it was active, and at the
+        # bounds (empty pixels sit at exactly 0)
+        pass_mask = (out.rgb > 0.0) & (out.rgb < 1.0)
+        d_rgb = torch.where(pass_mask, d_pred, torch.zeros_like(d_pred))
+        if band is not None:
+            d_rgb = band.rows(d_rgb)
+    grads, stats = rasterize_bwd(ctx, attrs_vjp, d_rgb, cam_pass, cfg_pass)
+    if band is not None:
+        grads, stats = band.reduce(grads, stats, ctx.keys.total)
+    d_xyz, d_features = grads[0], grads[1]
+    d_delta = d_q = d_t = None
+    if refine:
+        d_q, d_t = grads[2], grads[3]
+        (d_delta,) = torch.autograd.grad((q_used, t_used), delta, (d_q, d_t))
+    with torch.no_grad():
+        d_features = d_features * gf[None, :] + d_feat_reg
+        # never move invalid slots
+        valid = ~scene.invalid[:, None]
+        d_xyz = torch.where(valid, d_xyz, torch.zeros_like(d_xyz))
+        d_features = torch.where(valid, d_features,
+                                 torch.zeros_like(d_features))
+    return CameraPass(loss.detach(), l1.detach(), ssim_v.detach(), pred, out,
+                      ctx, stats, d_xyz, d_features, d_delta, d_q, d_t)
+
+
+def apply_grads(state: TrainState, optimizers, d_xyz: torch.Tensor,
+                d_features: torch.Tensor, ctrl_state: ctrl.ControllerState,
+                pose: Optional[tuple] = None) -> TrainState:
+    """The next state of every train step: both Adam updates
+    (``make_optimizers``) from the step's gradients, the controller's
+    accumulators ``ctrl_state``, and ``pose`` ((pose_deltas, pose_opt)),
+    else the state's own."""
+    feature_tx, position_tx = optimizers
+    scene = state.scene
+    with torch.no_grad():
+        features, feat_opt = feature_tx.update(d_features, state.feat_opt,
+                                               scene.features)
+        xyz, pos_opt = position_tx.update(d_xyz, state.pos_opt, scene.xyz)
+    pose_deltas, pose_opt = pose or (state.pose_deltas, state.pose_opt)
+    return TrainState(
+        scene=scene._replace(features=features, xyz=xyz), feat_opt=feat_opt,
+        pos_opt=pos_opt, ctrl=ctrl_state, pose_deltas=pose_deltas,
+        pose_opt=pose_opt)
+
+
+def refuse_scan_steps(scan_steps: int) -> None:
+    if scan_steps > 0:
+        raise NotImplementedError(
+            "scan_steps: the JAX package's lax.scan windows only saved "
+            "remote-TPU dispatches; the port runs one step per call and "
+            "does not port them (ROADMAP.md)")
+
+
+def train_rasterizer_config(config: TrainConfig) -> RasterizerConfig:
+    """The rasterizer config of the train steps: ``train_slim`` blends rgb
+    only (gradients and densify stats are unchanged)."""
+    rcfg = config.rasterisation_config
+    if config.train_slim and not rcfg.rgb_only:
+        rcfg = dataclasses.replace(rcfg, slim=True)
+    return rcfg
+
+
 def make_train_step(config: TrainConfig, height: int, width: int,
-                    scan_steps: int = 0, device="cuda"):
+                    scan_steps: int = 0, device="cuda",
+                    split_bands: bool = False):
     """The step for one (height, width) image size, on ``device``:
     ``step(state, image_gt, q, t, K, sh_band, img_idx=-1) -> (new_state,
     metrics, aux)``, with the (H, W, 3) ground truth in uint8 or f32 and the
     camera pose (q, t) in the world frame. Under ``pose_refinement``,
     ``img_idx`` (a host int) is the view's row of ``state.pose_deltas``;
     -1 renders the pose as given (through a zero delta) and moves no row,
-    as during ``pose_refinement_warm_up``."""
-    if scan_steps > 0:
-        raise NotImplementedError(
-            "scan_steps: the JAX package's lax.scan windows only saved "
-            "remote-TPU dispatches; the port runs one step per call and "
-            "does not port them (ROADMAP.md)")
+    as during ``pose_refinement_warm_up``. ``split_bands`` makes the
+    band-parallel step (``parallel.tile_parallel.make_tp_train_step``,
+    which refuses pose refinement); ``step.collectives`` lists its last
+    call's collectives."""
+    refuse_scan_steps(scan_steps)
     pose_refine = config.pose_refinement
-    rcfg = config.rasterisation_config
-    if config.train_slim and not rcfg.rgb_only:
-        # blend rgb only; gradients and densify stats are unchanged
-        rcfg = dataclasses.replace(rcfg, slim=True)
+    rcfg = train_rasterizer_config(config)
     lcfg = config.loss_function_config
-    feature_tx, position_tx = make_optimizers(config)
+    optimizers = make_optimizers(config)
     dev = torch.device(device)
     gf = torch.from_numpy(grad_factor_vector(rcfg)).to(dev)
+    if split_bands:
+        # imported here: tile_parallel imports this module
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+            multihost as mh,
+            tile_parallel as tp,
+        )
+        band_h, cfg_band = tp.band_layout(height, rcfg, mh.world_size())
 
     def step(state: TrainState, image_gt, q, t, K, sh_band,
              img_idx: int = -1):
@@ -222,94 +365,50 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         if image_gt.dtype == torch.uint8:
             image_gt = image_gt.to(torch.float32) * (1.0 / 255.0)
         camera = Camera(K=K, width=width, height=height)
-        xyz_in, feats_in = scene.xyz, scene.features
         refine = pose_refine and img_idx >= 0
-        if pose_refine:
-            if refine:
-                delta = state.pose_deltas[img_idx].detach()
-                delta.requires_grad_(True)
-            else:
-                delta = torch.zeros(6, dtype=torch.float32, device=dev)
-            with torch.set_grad_enabled(refine):
-                q_used, t_used = apply_pose_delta(q, t, delta)
-            # the pose cotangent sums over pool slots, so an invalid
-            # (zero-padded) slot's NaN Jacobian would poison it: invalid
-            # slots get inert inputs (identity quaternion, a point 1 m in
-            # front of the camera). No key reaches them, so their values
-            # never show.
-            with torch.no_grad():
-                inval = scene.invalid[:, None]
-                # R(q) e_z + t, from the pose alone (no host tensor, so no
-                # copy that would wait for the device)
-                front = quaternion_to_rotation_matrix(q_used)[:, 2] + t_used
-                safe_row = torch.zeros(56, dtype=torch.float32, device=dev)
-                safe_row[3] = 1.0
-                xyz_in = torch.where(inval, front[None, :], xyz_in)
-                feats_in = torch.where(inval, safe_row[None, :], feats_in)
-            q, t = q_used.detach(), t_used.detach()
-        out, ctx, attrs_vjp = rasterize_fwd_ctx(
-            xyz_in, feats_in, scene.invalid, q, t, camera, rcfg,
-            sh_max_band=sh_band, point_object_id=scene.object_id,
-            with_pose_grads=refine)
-        pred = torch.clamp(out.rgb, 0.0, 1.0)
-
-        p = pred.detach().requires_grad_(True)
-        f = scene.features.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss, l1, ssim_v = compute_loss(p, image_gt, lcfg, features=f,
-                                            invalid_mask=scene.invalid)
-            d_pred, d_feat_reg = torch.autograd.grad(loss, (p, f),
-                                                     allow_unused=True)
-        if d_feat_reg is None:  # no regularizer
-            d_feat_reg = torch.zeros_like(scene.features)
-
-        with torch.no_grad():
-            # the clamp's backward: zero where it was active, and at the
-            # bounds (empty pixels sit at exactly 0)
-            pass_mask = (out.rgb > 0.0) & (out.rgb < 1.0)
-            d_rgb = torch.where(pass_mask, d_pred, torch.zeros_like(d_pred))
-        grads, stats = rasterize_bwd(ctx, attrs_vjp, d_rgb, camera, rcfg)
-        d_xyz, d_features = grads[0], grads[1]
-        pose_deltas, pose_opt = state.pose_deltas, state.pose_opt
-        pose_aux = {}
+        delta = None
         if refine:
-            d_q, d_t = grads[2], grads[3]
-            (d_delta,) = torch.autograd.grad((q_used, t_used), delta,
-                                             (d_q, d_t))
+            delta = state.pose_deltas[img_idx].detach()
+            delta.requires_grad_(True)
+        elif pose_refine:
+            delta = torch.zeros(6, dtype=torch.float32, device=dev)
+        band = None
+        if split_bands:
+            band = tp.BandSplit(scene, q, t, K, width, height, band_h,
+                                cfg_band, rcfg)
+        cp = camera_pass(scene, image_gt, q, t, camera, rcfg, lcfg, gf,
+                         sh_band, delta, band)
+        pose, pose_aux = None, {}
+        if refine:
             with torch.no_grad():
-                pose_deltas, pose_opt = _pose_adam_row(
-                    state, img_idx, d_delta, config.pose_learning_rate)
-            pose_aux = {"grad_q": d_q, "grad_t": d_t, "grad_pose": d_delta}
+                pose = _pose_adam_row(state, img_idx, cp.d_delta,
+                                      config.pose_learning_rate)
+            pose_aux = {"grad_q": cp.d_q, "grad_t": cp.d_t,
+                        "grad_pose": cp.d_delta}
         with torch.no_grad():
-            d_features = d_features * gf[None, :] + d_feat_reg
-            # never move invalid slots
-            valid = ~scene.invalid[:, None]
-            d_xyz = torch.where(valid, d_xyz, torch.zeros_like(d_xyz))
-            d_features = torch.where(valid, d_features,
-                                     torch.zeros_like(d_features))
-            features, feat_opt = feature_tx.update(
-                d_features, state.feat_opt, scene.features)
-            xyz, pos_opt = position_tx.update(d_xyz, state.pos_opt, scene.xyz)
             ctrl_state = ctrl.accumulate(
-                state.ctrl, stats.in_camera, stats.num_affected_pixels,
-                stats.magnitude_grad_viewspace, d_xyz)
+                state.ctrl, cp.stats.in_camera, cp.stats.num_affected_pixels,
+                cp.stats.magnitude_grad_viewspace, cp.d_xyz)
             metrics = {
-                "loss": loss.detach(), "l1": l1.detach(),
-                "ssim": ssim_v.detach(), "psnr": psnr_fn(pred, image_gt),
-                "num_keys": ctx.keys.total,
+                "loss": cp.loss, "l1": cp.l1, "ssim": cp.ssim,
+                "psnr": psnr_fn(cp.pred, image_gt),
+                "num_keys": (cp.ctx.keys.total if band is None
+                             else band.num_keys),
             }
         aux = {
-            "pred": pred, "depth": out.depth, "count": out.count,
-            "stats": stats, "point_depth": ctx.raw.depth,
-            "point_uv": ctx.raw.uv, "grad_features": d_features,
-            "grad_xyz": d_xyz, **pose_aux,
+            "pred": cp.pred, "depth": cp.out.depth, "count": cp.out.count,
+            "stats": cp.stats, "point_depth": cp.ctx.raw.depth,
+            "point_uv": cp.ctx.raw.uv if band is None else band.uv,
+            "grad_features": cp.d_features, "grad_xyz": cp.d_xyz, **pose_aux,
         }
-        new_state = TrainState(
-            scene=scene._replace(features=features, xyz=xyz),
-            feat_opt=feat_opt, pos_opt=pos_opt, ctrl=ctrl_state,
-            pose_deltas=pose_deltas, pose_opt=pose_opt)
+        if band is not None:
+            aux["band_keys"] = cp.ctx.keys.total
+            step.collectives = band.log
+        new_state = apply_grads(state, optimizers, cp.d_xyz, cp.d_features,
+                                ctrl_state, pose)
         return new_state, metrics, aux
 
+    step.collectives = []
     return step
 
 
@@ -372,14 +471,16 @@ def _np(x) -> np.ndarray:
 
 
 def _refuse_unported(config: TrainConfig) -> None:
-    """Raise NotImplementedError for the options of the JAX trainer that
-    the port has not ported."""
-    if (config.multihost or config.data_parallel_devices > 1
-            or config.tile_parallel_devices > 1):
-        raise NotImplementedError(
-            "multihost, data-parallel and tile-parallel training are not "
-            "ported yet; they come with the multi-device slice (ROADMAP.md "
-            "A10)")
+    """Raise for the combinations the JAX trainer refuses (ValueError, its
+    messages) and for the options the port does not port
+    (NotImplementedError)."""
+    if config.tile_parallel_devices > 1 and (
+            config.data_parallel_devices > 1 or config.multihost
+            or config.pose_refinement):
+        raise ValueError(
+            "tile_parallel_devices composes with neither "
+            "data_parallel/multihost (pick one scaling axis) nor "
+            "pose_refinement")
     if config.steps_per_dispatch > 1:
         raise NotImplementedError(
             "steps_per_dispatch > 1: the JAX package's lax.scan windows "
@@ -387,30 +488,87 @@ def _refuse_unported(config: TrainConfig) -> None:
             "call and does not port them (ROADMAP.md)")
 
 
+def _join_parallel_group(config: TrainConfig, device) -> Optional[str]:
+    """Join the process group a multi-device config runs in. Returns
+    "dp" (data-parallel: ``data_parallel_devices`` > 1 or ``multihost``),
+    "tp" (``tile_parallel_devices`` > 1) or None (one device).
+
+    ``multihost`` joins the group its coordinator fields (or ``torchrun``'s
+    environment) describe. ``data_parallel_devices`` /
+    ``tile_parallel_devices`` N run one rank per device: ``apps/train.py``
+    spawns the N local ranks, or ``torchrun`` starts them."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    if config.multihost:
+        mh.initialize(config.coordinator_address, config.num_processes,
+                      config.process_id, device=device)
+        return "dp"
+    n = max(config.data_parallel_devices, config.tile_parallel_devices)
+    if n <= 1:
+        return None
+    if not mh.dist.is_initialized():
+        if not mh.launched_by_torchrun():
+            raise RuntimeError(
+                f"{n} devices run one rank each: start the run with "
+                "apps/train.py, which spawns the ranks, or with torchrun")
+        mh.initialize(device=device)
+    if mh.world_size() != n:
+        raise RuntimeError(f"the config asks for {n} devices, the process "
+                           f"group has {mh.world_size()} ranks")
+    return "tp" if config.tile_parallel_devices > 1 else "dp"
+
+
 class GaussianPointCloudTrainer:
-    """The training loop on one device (``device="cuda"`` by default; the
-    tests pass ``"cpu"``, which runs the kernels' plain versions).
+    """The training loop (``device="cuda"`` by default; the tests pass
+    ``"cpu"``, which runs the kernels' plain versions).
+
+    On one device, or on N ranks of a process group: data-parallel
+    (``data_parallel_devices`` N or ``multihost``; each rank trains its
+    own cameras of every step's batch, ``parallel/data_parallel.py``) or
+    band-parallel (``tile_parallel_devices`` N; each rank renders a band
+    of every frame, ``parallel/tile_parallel.py``). Rank r drives
+    ``cuda:{local_rank % device_count}``; the state stays replicated; the
+    main rank alone writes scenes, checkpoints, TensorBoard and the
+    console.
 
     Data loading and scene I/O go through ``_load_datasets``,
     ``_load_scene`` and ``_save_scene``, so a caller can substitute its own
     (e.g. in-memory views, or .ply files where pandas is missing)."""
 
     def __init__(self, config: TrainConfig, device="cuda"):
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+            multihost as mh,
+        )
+
         _refuse_unported(config)
         self.config = config
-        self.device = torch.device(device)
+        self.parallel = _join_parallel_group(config, device)
+        self.world = mh.world_size() if self.parallel else 1
+        self.rank = mh.rank() if self.parallel else 0
+        self.is_main = self.rank == 0
+        self.device = mh.rank_device(device)
         os.makedirs(config.summary_writer_log_dir, exist_ok=True)
         self.output_model_dir = (config.output_model_dir
                                  or config.summary_writer_log_dir)
         os.makedirs(self.output_model_dir, exist_ok=True)
         self.writer = None
-        try:
-            from tensorboardX import SummaryWriter
-            self.writer = SummaryWriter(
-                log_dir=config.summary_writer_log_dir)
-        except Exception:  # no tensorboardX: metrics go to the console only
-            self.writer = None
+        if self.is_main:  # one writer and checkpoint owner per job
+            try:
+                from tensorboardX import SummaryWriter
+                self.writer = SummaryWriter(
+                    log_dir=config.summary_writer_log_dir)
+            except Exception:  # no tensorboardX: the console only
+                self.writer = None
         self.train_dataset, self.val_dataset = self._load_datasets()
+        self._mh_hw = None
+        if config.multihost:
+            # every rank must run the same shapes every step: resolution is
+            # decided from metadata, identically everywhere
+            self._mh_hw = mh.check_uniform_resolution(
+                self.train_dataset.records,
+                config.rasterisation_config.tile_size)
         self.scene = self._load_scene()
         self.best_psnr_score = 0.0
         self._step_cache = {}
@@ -449,8 +607,24 @@ class GaussianPointCloudTrainer:
     def _get_step(self, h: int, w: int):
         key = (h, w)
         if key not in self._step_cache:
-            self._step_cache[key] = make_train_step(self.config, h, w,
-                                                    device=self.device)
+            if self.parallel == "tp":
+                from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (  # noqa: E501
+                    make_tp_train_step,
+                )
+
+                # the single-device step's signature: the plain loop
+                # branch drives it
+                make = make_tp_train_step
+            elif self.parallel == "dp":
+                from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
+                    make_dp_train_step,
+                )
+
+                make = make_dp_train_step
+            else:
+                make = make_train_step
+            self._step_cache[key] = make(self.config, h, w,
+                                         device=self.device)
         return self._step_cache[key]
 
     def _get_eval(self, h: int, w: int):
@@ -481,19 +655,83 @@ class GaussianPointCloudTrainer:
             self.writer.add_scalar(tag, float(value), iteration)
 
     def _console(self, **kv):
-        if self.config.print_metrics_to_console:
+        if self.config.print_metrics_to_console and self.is_main:
             for k, v in kv.items():
                 print(f"{k}={v};")
 
     # -- main loop ---------------------------------------------------------------
 
+    def _dp_rows(self) -> list:
+        """The global camera indices of the next data-parallel step, one a
+        rank, from the shared-seed stream. Outside ``multihost`` a step
+        whose cameras map to mixed resolutions keeps those of the newest
+        one's and draws more (the JAX trainer's refetch; here decided from
+        metadata, identically on every rank, before any pixel is read)."""
+        world = self.world
+        gidx = self._sampler.next_global(world)
+        if self._mh_hw is not None:
+            return gidx
+        sizes = [self._record_hw[i] for i in gidx]
+        if len(set(sizes)) == 1:
+            return gidx
+        target = sizes[-1]
+        keep = [i for i, s in zip(gidx, sizes) if s == target][-world:]
+        fetched = 0
+        while len(keep) < world:
+            (i,) = self._sampler.next_global(1)
+            if self._record_hw[i] == target:
+                keep.append(i)
+            fetched += 1
+            if fetched > 10 * max(len(self.train_dataset), 1):
+                raise RuntimeError(
+                    "could not assemble a uniform-resolution data-parallel "
+                    f"batch of {world} at {target[0]}x{target[1]}")
+        return keep
+
+    def _dp_items(self) -> list:
+        """This rank's items of the next data-parallel step; the next
+        step's decode is submitted while this one trains (the stream is
+        deterministic, so a peek gives what the next draw returns; a
+        mismatch falls back to a synchronous load)."""
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel.multihost import (  # noqa: E501
+            GlobalShuffleSampler,
+        )
+
+        gidx = self._dp_rows()
+        pre, self._prefetch = self._prefetch, None
+        if pre is not None and pre[0] == gidx:
+            items = [f.result() for f in pre[1]]
+        else:
+            items = self._loader.load(GlobalShuffleSampler.local_slice(
+                gidx, self.world, 1, self.rank))
+        nxt = self._sampler.peek_global(self.world)
+        self._prefetch = (nxt, self._loader.submit(
+            GlobalShuffleSampler.local_slice(nxt, self.world, 1, self.rank)))
+        return items
+
     def train(self) -> TrainState:
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+            multihost as mh,
+        )
+
         config = self.config
         tile = config.rasterisation_config.tile_size
-        loader = PrefetchLoader(self.train_dataset, shuffle=True,
-                                num_threads=config.num_data_threads,
-                                seed=config.seed)
-        data_iter = iter(loader)
+        data_iter = None
+        if self.parallel == "dp":
+            # every rank draws the same global index stream and decodes
+            # only its own rows
+            self._sampler = mh.GlobalShuffleSampler(len(self.train_dataset),
+                                                    seed=config.seed)
+            self._loader = mh.ThreadedIndexLoader(
+                self.train_dataset, num_threads=config.num_data_threads,
+                expected_hw=self._mh_hw)
+            self._record_hw = [mh.expected_resolution(r, tile)
+                               for r in self.train_dataset.records]
+            self._prefetch = None
+        else:
+            data_iter = iter(PrefetchLoader(
+                self.train_dataset, shuffle=True,
+                num_threads=config.num_data_threads, seed=config.seed))
         state = init_train_state(self.scene, config,
                                  len(self.train_dataset))
 
@@ -513,6 +751,10 @@ class GaussianPointCloudTrainer:
                 torch.tensor(meta["rng_state"], dtype=torch.uint8))
             print(f"resumed from {config.resume_from} at iteration "
                   f"{start_iteration}")
+        if self.parallel:
+            # identical by construction (shared seed or checkpoint);
+            # rank 0's copy makes it so bit for bit
+            state = mh.broadcast_tree(state)
 
         ccfg = config.adaptive_controller_config
         downsample_factor = config.initial_downsample_factor
@@ -530,17 +772,38 @@ class GaussianPointCloudTrainer:
                 if (iteration % config.half_downsample_factor_interval == 0
                         and iteration > 0 and downsample_factor > 1):
                     downsample_factor //= 2
-                item = next(data_iter)
-                if downsample_factor > 1:
-                    item = downsample_item(item, downsample_factor, tile)
-                h = item.camera_info.camera_height
-                w = item.camera_info.camera_width
                 sh_band = iteration // config.increase_color_max_sh_band_interval
                 # -1 holds the pose still during the pose warm-up
-                pose_idx = (item.index if iteration
-                            >= config.pose_refinement_warm_up else -1)
-                state, metrics, aux = self._get_step(h, w)(
-                    state, *self._item_tensors(item), sh_band, pose_idx)
+                warm_pose = iteration >= config.pose_refinement_warm_up
+                if self.parallel == "dp":
+                    # this rank's cameras of the step (one); the logged
+                    # item is batch row 0 on the main rank
+                    items = self._dp_items()
+                    if downsample_factor > 1:
+                        items = [downsample_item(it, downsample_factor, tile)
+                                 for it in items]
+                    item = items[0]
+                    h = item.camera_info.camera_height
+                    w = item.camera_info.camera_width
+                    rows = [torch.stack(c) for c in zip(
+                        *(self._item_tensors(it) for it in items))]
+                    idxs = [it.index if warm_pose else -1 for it in items]
+                    state, metrics, frame_stats = self._get_step(h, w)(
+                        state, *rows, sh_band, idxs)
+                    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
+                        frame_stats_aux,
+                    )
+
+                    aux = frame_stats_aux(frame_stats)
+                else:
+                    item = next(data_iter)
+                    if downsample_factor > 1:
+                        item = downsample_item(item, downsample_factor, tile)
+                    h = item.camera_info.camera_height
+                    w = item.camera_info.camera_width
+                    pose_idx = item.index if warm_pose else -1
+                    state, metrics, aux = self._get_step(h, w)(
+                        state, *self._item_tensors(item), sh_band, pose_idx)
 
                 # densify cadence, on the post-optimizer-step scene
                 warm = iteration >= ccfg.num_iterations_warm_up
@@ -554,14 +817,20 @@ class GaussianPointCloudTrainer:
                         self._log_densify_scatter(info, aux, iteration)
                     new_scene, new_ctrl = self.densify_apply(
                         state.scene, info, self.generator)
+                    if self.parallel:
+                        # the ranks drew the same noise from the same
+                        # generator state; rank 0's pool keeps them equal
+                        # bit for bit
+                        new_scene = mh.broadcast_tree(new_scene)
                     state = state._replace(scene=new_scene, ctrl=new_ctrl)
                 if warm and iteration % ccfg.num_iterations_reset_alpha == 0:
                     state = state._replace(
                         scene=self.alpha_reset(state.scene))
 
                 # the scene as a Gaussian mixture, in Fourier space: a
-                # diagnostic, so a failure is printed and training goes on
-                if iteration and iteration % 1234 == 0:
+                # diagnostic, so a failure is printed and training goes on;
+                # the scene is replicated, so the main rank's covers the job
+                if iteration and iteration % 1234 == 0 and self.is_main:
                     try:
                         from taichi_3d_gaussian_splatting_tpu_torch.tools.ftgmm import (  # noqa: E501
                             ft_grab_scene,
@@ -602,7 +871,10 @@ class GaussianPointCloudTrainer:
                         or iteration in (5000, 7000)):
                     state = self._validate(state, iteration)
         finally:
-            data_iter.close()
+            if data_iter is not None:
+                data_iter.close()
+            else:
+                self._loader.close()
             if self._profiler is not None:
                 self._profiler.stop()
                 self._profiler = None
@@ -642,7 +914,7 @@ class GaussianPointCloudTrainer:
         a card) of the same window of iterations, written as a Chrome trace
         to ``<summary_writer_log_dir>/torch_trace.json``."""
         config = self.config
-        if not config.enable_jax_profiler:
+        if not config.enable_jax_profiler or not self.is_main:
             return
         if iteration == config.jax_profiler_start_iteration:
             from torch.profiler import ProfilerActivity, profile
@@ -807,21 +1079,28 @@ class GaussianPointCloudTrainer:
     def _validate(self, state: TrainState, iteration: int) -> TrainState:
         """Render every val view; log the mean loss, PSNR and SSIM; write
         ``scene_{iteration}``, ``checkpoint_latest`` and, on a new best
-        PSNR, ``best_scene``."""
+        PSNR, ``best_scene``. On several ranks each renders every
+        world-th view (its own share) and the totals are all-reduced; the
+        main rank writes."""
         config = self.config
         sh_band = min(iteration // config.increase_color_max_sh_band_interval,
                       3)
+        keys = ("loss", "l1", "psnr", "ssim_score")
         totals = collections.defaultdict(float)
         frame_times = []
         n = 0
-        for item in PrefetchLoader(self.val_dataset, shuffle=False,
+        if self.world == 1:
+            items = PrefetchLoader(self.val_dataset, shuffle=False,
                                    loop=False,
-                                   num_threads=config.num_data_threads):
+                                   num_threads=config.num_data_threads)
+        else:
+            items = (self.val_dataset[i] for i in range(len(self.val_dataset))
+                     if i % self.world == self.rank)
+        for item in items:
             t0 = time.time()
             metrics, pred, depth, count = self._eval_frame(state, item,
                                                            sh_band)
-            values = {k: float(metrics[k])
-                      for k in ("loss", "l1", "psnr", "ssim_score")}
+            values = {k: float(metrics[k]) for k in keys}
             frame_times.append(time.time() - t0)
             for k, v in values.items():
                 totals[k] += v
@@ -829,6 +1108,16 @@ class GaussianPointCloudTrainer:
                 self._log_validation_image(item, pred, depth, count,
                                            item.index, iteration)
             n += 1
+        if self.world > 1:
+            from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+                multihost as mh,
+            )
+
+            vec = torch.tensor([totals[k] for k in keys] + [float(n)],
+                               dtype=torch.float64, device=self.device)
+            (vec,) = mh.all_reduce_packed([vec], "sum", dtype=torch.float64)
+            vec = vec.tolist()
+            totals, n = dict(zip(keys, vec[:4])), int(round(vec[4]))
         if n == 0:
             return state
         mean_psnr = totals["psnr"] / n
@@ -837,12 +1126,18 @@ class GaussianPointCloudTrainer:
         self._scalar("val/psnr", mean_psnr, iteration)
         self._scalar("val/ssim", mean_ssim, iteration)
         # the median leaves out the first frame's one-time costs
-        self._scalar("val/inference_time", float(np.median(frame_times)),
-                     iteration)
+        if frame_times:
+            self._scalar("val/inference_time", float(np.median(frame_times)),
+                         iteration)
         self._console(val_loss=totals["loss"] / n, val_psnr=mean_psnr,
                       val_ssim=mean_ssim,
                       **{f"val_psnr_{iteration}": mean_psnr,
                          f"val_ssim_{iteration}": mean_ssim})
+        if not self.is_main:
+            # the totals were all-reduced, so every rank keeps the same
+            # best-PSNR bookkeeping; the writes belong to the main rank
+            self.best_psnr_score = max(self.best_psnr_score, mean_psnr)
+            return state
 
         self._save_scene(state.scene, os.path.join(
             self.output_model_dir, f"scene_{iteration}.parquet"))

@@ -111,3 +111,18 @@ def test_device_busy_scales_lost_events_to_every_call(monkeypatch, cs):
     busy = cs.device_busy(lambda: None, 20, expect=("tile_ranges_kernel(",))
     assert busy["device_busy_ms"] == pytest.approx(0.1)  # 20 x (3 + 2) us
     assert busy["busy_share"] == pytest.approx(0.1)  # of the 1 ms window
+
+
+def test_other_names_with_extra_events_count_as_they_stand(monkeypatch, cs):
+    # 2 calls of a plain blend: its elementwise kernels twice each, and 5
+    # copies (a count that is no whole number a call): the window is read
+    # as it stands, not taken again
+    copy = "Memcpy DtoD (Device -> Device)"
+    taken = canned(monkeypatch, cs, [[(OTHER, 4 * 3.0, 4),
+                                      (copy, 5 * 1.0, 5)]])
+    monkeypatch.setattr(cs, "WINDOWS",
+                        {"taken": 0, "retaken": 0, "events_lost": 0})
+    assert cs.device_ms(lambda: None, 2, expect=cs.EW) == (
+        pytest.approx(0.0085))  # 2 x 3 us + 5 x 1 us / 2, a call
+    assert len(taken) == 1
+    assert cs.WINDOWS == {"taken": 1, "retaken": 0, "events_lost": 0}

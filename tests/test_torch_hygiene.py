@@ -1,7 +1,8 @@
 """Rules of the port that no parity test covers: it never imports JAX or
 the JAX package, it imports without CUDA (and without PyYAML, PIL, pandas
 or tensorboardX), gradients
-flow through its rasterizer, the options it does not port raise, and its
+flow through its rasterizer, the options it does not port and the
+combinations the JAX trainer refuses raise, and its
 kernel wrappers reject malformed tensors and never launch on the CPU."""
 import ast
 import dataclasses
@@ -132,16 +133,26 @@ def test_loop_imports_without_optional_packages():
     assert r.stdout.strip() == "imported"
 
 
-@pytest.mark.parametrize("over, match", [
-    ({"multihost": True}, "multi-device slice"),
-    ({"data_parallel_devices": 2}, "multi-device slice"),
-    ({"tile_parallel_devices": 2}, "multi-device slice"),
-    ({"steps_per_dispatch": 4}, "steps_per_dispatch"),
+TP_REFUSAL = ("tile_parallel_devices composes with neither "
+              "data_parallel/multihost")
+
+
+@pytest.mark.parametrize("over, error, match", [
+    # the combinations the JAX trainer refuses, with its message
+    ({"tile_parallel_devices": 2, "data_parallel_devices": 2}, ValueError,
+     TP_REFUSAL),
+    ({"tile_parallel_devices": 2, "multihost": True}, ValueError,
+     TP_REFUSAL),
+    ({"tile_parallel_devices": 2, "pose_refinement": True}, ValueError,
+     TP_REFUSAL),
+    # a multi-device config outside a process group of its size
+    ({"data_parallel_devices": 2}, RuntimeError, "spawns the ranks"),
+    ({"steps_per_dispatch": 4}, NotImplementedError, "steps_per_dispatch"),
 ])
-def test_trainer_refuses_unported_options(over, match, tmp_path):
+def test_trainer_refuses_unported_options(over, error, match, tmp_path):
     config = dataclasses.replace(
         TrainConfig(summary_writer_log_dir=str(tmp_path)), **over)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         trainer.GaussianPointCloudTrainer(config, device="cpu")
     assert list(tmp_path.iterdir()) == []  # refused before anything ran
 
@@ -241,8 +252,7 @@ def test_wrappers_check_shapes():
         sr.segment_reduce(torch.zeros(12, 8), _i32(3), _i32(4))
 
 
-COUNTERS = (histogram.bucket_histogram, histogram.tile_ranges,
-            expand.slot_keys, expand.sorted_table, blend.blend_forward,
+COUNTERS = (histogram.tile_ranges, expand.slot_keys, expand.sorted_table, blend.blend_forward,
             blend.blend_backward, sr.segment_reduce, sr.segment_reduce_sorted)
 
 

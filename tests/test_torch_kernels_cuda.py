@@ -7,7 +7,7 @@ so it runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Tolerances: the key expansion (slot_keys, sorted_table), bucket_histogram,
+Tolerances: the key expansion (slot_keys, sorted_table),
 tile_ranges and segment_reduce must match bit for bit (integer and copy kernels, and
 segment sums added in slot order like their plain versions); the sorted
 table also equals the pre-sort table gathered by the sort's permutation,
@@ -80,18 +80,6 @@ def _expand_inputs(cfg, cam, raw, radius, invalid, nonfinite=False):
     kw = dict(total=r.total, tiles_u=tiles_u, tile_w=tile[0], tile_h=tile[1],
               dbits=dbits, sentinel=((num_tiles + 1) << dbits) - 1)
     return (r.offsets, r.counts, r.dkey, r.base, r.h, att.contiguous()), kw
-
-
-def test_histogram_matches_plain(dev):
-    rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(-5, 530, 50_000).astype(np.int32))
-    ids = ids.to(dev)
-    for nb in (1, 4, 510, 20_000):
-        before = histogram.bucket_histogram.launches
-        got = histogram.bucket_histogram(ids, nb)
-        assert histogram.bucket_histogram.launches == before + 1
-        want = histogram.bucket_histogram_plain(ids, nb)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("case, num_tiles", [
@@ -214,12 +202,12 @@ def test_blend_matches_plain(dev, tile, rgb_only, dense):
 def test_rasterize_launches_every_kernel(dev):
     cfg, cam, _, _, _, (xyz, feats, invalid) = _frame(dev)
     counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
-                blend.blend_forward, histogram.bucket_histogram)
+                blend.blend_forward)
     before = [f.launches for f in counters]
     out = R.rasterize(xyz, feats, invalid, torch.from_numpy(Q_ID).to(dev),
                       torch.from_numpy(T_ID).to(dev), cam, cfg)
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 4 + [0]
+            for f, b in zip(counters, before)] == [1] * 4
     assert out.rgb.shape == (64, 64, 3) and out.rgb.is_cuda
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
 
@@ -332,14 +320,13 @@ def test_train_step_launches_every_kernel(dev):
                            * 255).astype(np.uint8)).to(dev)
     counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
                 blend.blend_forward, blend.blend_backward,
-                sr.segment_reduce_sorted, sr.segment_reduce,
-                histogram.bucket_histogram)
+                sr.segment_reduce_sorted, sr.segment_reduce)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 6 + [0, 0]
+            for f, b in zip(counters, before)] == [1] * 6 + [0]
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
