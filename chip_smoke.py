@@ -123,7 +123,29 @@ yardstick of their redesign), then:
 13. ``parallel/mh_smoke.py``'s worker on two ranks (4 cameras a rank)
    against ``single_process_reference`` (one process, 8 cameras): losses
    at rtol 1e-5, Adam's first moments at the gradient gate, the visibility
-   counts exact, and the launches of 2 steps of 4 cameras a rank.
+   counts exact, and the launches of 2 steps of 4 cameras a rank;
+14. trains in windows of 8 steps through make_train_step(scan_steps=8),
+   each window one CUDA graph replay: (a) from phase 4's start state over
+   8 views (targets rendered at ``poses(8)`` as phase 10's), with the key
+   capacity fitted to their totals, the window's state and 8 losses equal
+   bit for bit to 8 eager steps on the exact path, replayed twice; (b)
+   with a capacity below the full-width total (2^18 against 471,633
+   keys), K1a in its capped mode bit for bit against its capped plain
+   version (and at the fitted capacity), and the capped step against the
+   capped plain route: loss at rtol 1e-4, the frame within 1e-4, the
+   gradients within 5e-4 + 1e-3 |plain|, the true key total reported;
+   (c) ms a step over warm replays (CUDA events), the device's busy share,
+   the capture time, the graph pool's memory, and each kernel's launches a
+   window counted from the profiler's trace of replays (8 each; the
+   wrappers' counters do not tick under a replay); (d) phase 5's loop with
+   steps_per_dispatch 8: its windows, one capture a (size, SH band,
+   capacity) and one graph held at a time, the key-capacity refits, ms an
+   iteration over the whole train() window, and a resume; (e) a 49-
+   iteration loop whose windows replay their cached graph after a densify
+   round and after an SH-band change (which releases the band's graph and
+   captures the next), then change size: the graphs held, and the memory
+   held before and after each window, which must not grow by a graph
+   across the band change, and the peak.
 
 Each path's launch counts are set to 0 just before it and read just after
 (in phases 10-13 by each rank, in its own process).
@@ -141,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -2424,6 +2447,373 @@ def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
     return out
 
 
+# --- phase 14: windowed training ---------------------------------------------
+
+WINDOW = 8               # steps a window (steps_per_dispatch)
+OVERFLOW_CAP = 2 ** 18   # a key capacity below the full-width frame's total
+# each TPU kernel's CUDA kernels, by symbol (K1 is two)
+WINDOW_SYMBOLS = {"expand_keys": ("slot_keys_kernel", "sorted_table_kernel"),
+                  "tile_ranges": ("tile_ranges_kernel",),
+                  "blend_forward": ("blend_forward_kernel",),
+                  "blend_backward": ("blend_backward_kernel",),
+                  "segment_reduce": ("segment_reduce_kernel",)}
+
+
+def leaves_equal(a, b) -> bool:
+    from taichi_3d_gaussian_splatting_tpu_torch.training import checkpoint
+
+    return all(torch.equal(x, y) for x, y in zip(checkpoint.state_leaves(a),
+                                                 checkpoint.state_leaves(b)))
+
+
+def window_profile(run, reps: int) -> tuple:
+    """A profiler window of reps calls of ``run`` (one replay each): the
+    device's busy share, each TPU kernel's launches a call counted from
+    the trace (the wrappers' counters do not tick under a replay), and its
+    device ms a launch under replay (K1: K1a + K1b)."""
+    expect = tuple(s + "(" for syms in WINDOW_SYMBOLS.values()
+                   for s in syms)
+    wall_ms, calls = profiled(run, reps, expect)
+    busy_ms = sum(us for _, us, _ in calls) * reps / 1e3
+    launches, kernel_ms_ = {}, {}
+    for name, syms in WINDOW_SYMBOLS.items():
+        mine = [(us, k) for ev, us, k in calls
+                if any(s + "(" in ev for s in syms)]
+        launches[name] = sum(k for _, k in mine)
+        kernel_ms_[name] = (sum(us for us, _ in mine) / 1e3
+                            / max(launches[name], 1) * len(syms))
+    by_name = {}  # names cut to 90 characters; kernels that share one add up
+    for ev, us, _ in calls:
+        by_name[ev[:90]] = by_name.get(ev[:90], 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+    return {"window_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "kernel_ms_under_replay": kernel_ms_,
+            "top_kernels_ms_per_window": dict(top)}, launches
+
+
+def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
+    """Phase 14 (a)-(c): windows of WINDOW steps through make_train_step
+    (scan_steps) on phase 4's scene and start state over WINDOW views,
+    each window one CUDA graph replay. ``ref``: phase 4's figures of this
+    run (step ms, device ms), for the record."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import expand
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+
+    config, step, start, (gt0, q0, t0, K, band) = train_setup(
+        xyz, feats, camera, cfg_kw)
+    views = view_targets(start, feats, camera, list(range(WINDOW)), cfg_kw)
+    imgs, qs, ts = (torch.stack([v[i] for v in views]) for i in range(3))
+    Ks = torch.stack([v[3] for v in views])
+    # (a) WINDOW eager steps on the exact path, then the window's replays
+    eager, losses, totals = start, [], []
+    for i in range(WINDOW):
+        eager, m, _ = step(eager, imgs[i], qs[i], ts[i], K, band)
+        losses.append(m["loss"])
+        totals.append(m["num_keys"])
+    cap = trainer.fit_key_cap(max(totals))
+    window = trainer.make_train_step(config, HEIGHT, WIDTH,
+                                     scan_steps=WINDOW, device="cuda",
+                                     key_cap=cap)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    (got, wm, _), first_ms = synced_ms(window, start, imgs, qs, ts, Ks,
+                                       band)
+    (graph,) = window.graphs.values()
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    first_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = leaves_equal(got, eager) and torch.equal(wm["loss"],
+                                                    torch.stack(losses))
+    # a second replay from the start state: the state is copied in anew
+    again, wm2, _ = window(start, imgs, qs, ts, Ks, band)
+    same2 = leaves_equal(again, eager) and torch.equal(wm2["loss"],
+                                                       torch.stack(losses))
+    print(f"  (a) {WINDOW} views, key totals {totals} -> key_cap {cap}; "
+          f"the window against {WINDOW} eager exact steps: state and losses "
+          f"bit for bit {same} (replayed again from the start: {same2}); "
+          f"first call (warm-up, capture, replay) {first_ms:.1f} ms, of "
+          f"which capture {graph.capture_s:.3f} s; pool {pool_gib:.3f} GiB "
+          f"reserved, peak {first_peak_gib:.3f} GiB allocated through "
+          f"warm-up, capture and a replay", flush=True)
+    if not (same and same2):
+        raise AssertionError("the window differs from the eager steps")
+
+    # (b) a capacity below the key total: capped K1a against its capped
+    # plain version, and the capped step against the capped plain route
+    frame = Frame(start.scene.xyz, start.scene.features, start.scene.invalid,
+                  q0, t0, camera, R.RasterizerConfig(**cfg_kw))
+    total = frame.expand_kw["total"]
+    key_total = torch.tensor(total, dtype=torch.int64, device="cuda")
+    k1a = {}
+    for c in (OVERFLOW_CAP, trainer.fit_key_cap(total)):
+        kw = dict(frame.expand_kw, total=c)
+        fused, owner = expand.slot_keys(*frame.expand_args, **kw,
+                                        key_total=key_total)
+        fused_p, owner_p = expand.slot_keys_plain(*frame.expand_args, **kw,
+                                                  key_total=key_total)
+        k1a[c] = bool(torch.equal(fused, fused_p)
+                      and torch.equal(owner, owner_p))
+    capped = trainer.make_train_step(config, HEIGHT, WIDTH, device="cuda",
+                                     key_cap=OVERFLOW_CAP)
+    _, mk, ak = capped(start, gt0, q0, t0, K, band)
+    with plain_route():
+        _, mp, ap = capped(start, gt0, q0, t0, K, band)
+    exact_loss = float(step(start, gt0, q0, t0, K, band)[1]["loss"])
+    overflow = {
+        "key_total": int(mk["num_keys"]), "key_cap": OVERFLOW_CAP,
+        "loss": float(mk["loss"]),
+        "plain_loss": float(mp["loss"]), "exact_loss": exact_loss,
+        "pred_err": max_abs(ak["pred"], ap["pred"]),
+        "grad_features_excess": gate_excess(ak["grad_features"],
+                                            ap["grad_features"]),
+        "grad_xyz_excess": gate_excess(ak["grad_xyz"], ap["grad_xyz"]),
+        "k1a_bit_for_bit": {str(c): v for c, v in k1a.items()}}
+    print(f"  (b) key total {total}: capped K1a at {OVERFLOW_CAP} and "
+          f"{trainer.fit_key_cap(total)} bit for bit against its plain "
+          f"version {k1a}; the step at {OVERFLOW_CAP} against the plain "
+          f"route: {overflow}", flush=True)
+    if not all(k1a.values()):
+        raise AssertionError("capped K1a differs from its plain version")
+    if (int(mk["num_keys"]) != total or int(mp["num_keys"]) != total
+            or abs(overflow["loss"] - overflow["plain_loss"])
+            > 1e-4 * abs(overflow["plain_loss"])
+            or overflow["pred_err"] > 1e-4
+            or overflow["grad_features_excess"] > 0
+            or overflow["grad_xyz_excess"] > 0
+            or overflow["loss"] == exact_loss):
+        raise AssertionError("the capped step is outside the gates of the "
+                             "capped plain route, or dropped no key")
+
+    # (c) timing: warm replays, each from the static state it returned
+    state = got
+
+    def run():
+        nonlocal state
+        state = window(state, imgs, qs, ts, Ks, band)[0]
+    window_ms = cuda_ms(run, reps=10, warmup=1) / WINDOW
+    busy, launches = window_profile(run, reps=3)
+    per_step_device = busy["device_busy_ms"] / 3 / WINDOW
+    print(f"  (c) {window_ms:.3f} ms a step over warm replays (phase 4: "
+          f"{ref.get('step_ms')} ms a step, {ref.get('device_ms')} ms of "
+          f"device work); device {per_step_device:.3f} ms a step, busy "
+          f"{busy['busy_share']:.3f}; launches a window from the trace "
+          f"{launches}; {busy}", flush=True)
+    for name, n in launches.items():
+        if n != WINDOW * len(WINDOW_SYMBOLS[name]):
+            raise AssertionError(f"{name}: {n} launches in a window of "
+                                 f"{WINDOW} steps")
+    if not all(math.isfinite(float(v)) for v in wm["loss"]):
+        raise AssertionError("a non-finite window loss")
+    return {"window_steps": WINDOW, "window_key_cap": cap,
+            "window_key_totals": totals,
+            "window_bit_for_bit": same and same2,
+            "window_losses": [float(v) for v in wm["loss"]],
+            "window_capture_s": graph.capture_s,
+            "window_first_call_ms": first_ms,
+            "window_pool_reserved_gib": pool_gib,
+            "window_first_call_peak_gib": first_peak_gib,
+            "window_ms_per_step": window_ms,
+            "window_device_ms_per_step": per_step_device,
+            "window_profile": busy, "window_launches": launches,
+            "window_phase4_step_ms": ref.get("step_ms"),
+            "window_phase4_device_ms": ref.get("device_ms"),
+            "window_overflow": overflow}
+
+
+def record_windows(trainer, memory: bool = False) -> list:
+    """Wrap the trainer's ``_get_step`` so that each window call appends a
+    row: its size, SH band and key capacity, whether it captured a graph
+    and the graphs every window of the trainer holds after it. With
+    ``memory``, also the card's memory before and after the call, each
+    read after ``empty_cache`` (what the process holds, not the
+    allocator's free cache)."""
+    rows = []
+    get_step = trainer._get_step
+
+    def held_gib():
+        gc.collect()  # garbage of earlier phases' cycles, freed now
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2 ** 30
+
+    def recorded(h, w, scan_steps=0):
+        fn = get_step(h, w, scan_steps)
+        if scan_steps == 0:
+            return fn
+
+        def call(state, *a):
+            row = {"size": [h, w], "sh_band": int(a[4]),
+                   "key_cap": trainer._key_cap}
+            if memory:
+                row["held_before_gib"] = held_gib()
+            captures = fn.captures
+            out = fn(state, *a)
+            row.update(captured=fn.captures > captures, graphs_held=sum(
+                len(getattr(f, "graphs", {}))
+                for f in trainer._step_cache.values()))
+            if memory:
+                row["held_after_gib"] = held_gib()
+            rows.append(row)
+            return out
+        return call
+
+    trainer._get_step = recorded
+    return rows
+
+
+def run_window_loop(xyz, feats, K_np, loop_ms, dev="cuda") -> dict:
+    """Phase 14 (d): phase 5's loop with steps_per_dispatch WINDOW: its
+    windows, the graphs they capture and hold, its key-capacity refits, ms
+    an iteration over the whole train() window, then a resume from
+    checkpoint_latest."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training import checkpoint
+
+    views = loop_views(K_np, dev)
+    saved_as = []
+    Trainer = loop_trainer_class(views[:6], views[6:], xyz, feats, saved_as)
+    log_dir = tempfile.TemporaryDirectory()
+    trainer = Trainer(loop_config(log_dir.name, steps_per_dispatch=WINDOW),
+                      device=dev)
+    refits, saves = [], {}
+    rebucket = trainer._maybe_rebucket_key_cap
+    windows = record_windows(trainer)
+
+    def recorded_rebucket(num_keys):
+        before = trainer._key_cap
+        grew = rebucket(num_keys)
+        refits.append({"live_keys": num_keys, "key_cap_before": before,
+                       "key_cap_after": trainer._key_cap})
+        return grew
+
+    save = checkpoint.save_checkpoint
+
+    def recorded_save(path, state, meta):
+        save(path, state, meta)
+        # the windows' state lives in their graphs' buffers, which later
+        # replays overwrite: keep a copy of what was saved
+        saves.update(leaves=[t.clone() for t in
+                             checkpoint.state_leaves(state)], meta=meta)
+
+    trainer._maybe_rebucket_key_cap = recorded_rebucket
+    checkpoint.save_checkpoint = recorded_save
+    try:
+        state, train_ms = synced_ms(trainer.train)
+    finally:
+        checkpoint.save_checkpoint = save
+    loop_w_ms = train_ms / LOOP_ITERS
+    keys = {(tuple(r["size"]), r["sh_band"], r["key_cap"]) for r in windows}
+    saved_it = int(saves["meta"]["iteration"])
+    resumed = Trainer(loop_config(
+        log_dir.name + "/resumed", steps_per_dispatch=WINDOW,
+        num_iterations=saved_it + 1,
+        resume_from=str(Path(log_dir.name) / "checkpoint_latest")),
+        device=dev)
+    restored = resumed.train()
+    same = all(torch.equal(a, b) for a, b in zip(
+        checkpoint.state_leaves(restored), saves["leaves"]))
+    same_cap = resumed._key_cap == saves["meta"]["key_cap"]
+    print(f"  (d) {LOOP_ITERS} iterations with steps_per_dispatch {WINDOW}: "
+          f"{loop_w_ms:.2f} ms an iteration over the whole train() window "
+          f"(phase 5: {loop_ms} ms); windows {windows}; refits {refits}; "
+          f"resumed at {saved_it + 1}: leaves equal {same}, key_cap "
+          f"{resumed._key_cap} restored {same_cap}", flush=True)
+    if len(windows) < 2 or any(r["graphs_held"] != 1 for r in windows):
+        raise AssertionError(f"the loop ran {len(windows)} windows, or held "
+                             f"other than one graph after one: {windows}")
+    if sum(r["captured"] for r in windows) != len(keys):
+        raise AssertionError(f"{len(keys)} (size, band, capacity) keys but "
+                             f"other captures: {windows}")
+    if not (same and same_cap):
+        raise AssertionError("the resumed state differs from the saved one")
+    if not bool(torch.isfinite(state.scene.features).all()):
+        raise AssertionError("non-finite features after the loop")
+    log_dir.cleanup()
+    return {"window_loop_ms_per_iteration": loop_w_ms,
+            "window_loop_phase5_ms": loop_ms,
+            "window_loop_windows": windows,
+            "window_loop_refits": refits,
+            "window_loop_resume_equal": same and same_cap}
+
+
+# the schedule of phase 14 (e): windows 1-8 and 9-16 at SH band 0, 17-24
+# and 25-32 at band 1 (480x256), densify after each; 41-48 at 960x544
+REUSE_ITERS = 49
+REUSE_WINDOWS = [(0, 0), (0, 0), (0, 1), (0, 1), (1, 2)]  # (size, band)
+
+
+def run_window_reuse(xyz, feats, K_np, dev="cuda") -> dict:
+    """Phase 14 (e): a loop whose windows replay a cached graph after a
+    densify round (partial copy-in of the new scene and controller) and
+    after an SH-band change (the window's one graph released and captured
+    anew), then change size (the trainer drops the old size's windows),
+    with the memory the process holds before and after each window."""
+    views = loop_views(K_np, dev)
+    Trainer = loop_trainer_class(views[:6], views[6:], xyz, feats, [])
+    log_dir = tempfile.TemporaryDirectory()
+    trainer = Trainer(loop_config(
+        log_dir.name, steps_per_dispatch=WINDOW, num_iterations=REUSE_ITERS,
+        val_interval=40, half_downsample_factor_interval=33,
+        increase_color_max_sh_band_interval=17,
+        adaptive_controller_config={
+            "num_iterations_warm_up": 8, "num_iterations_densify": 8,
+            "num_iterations_reset_alpha": 1000,
+            "densification_view_space_position_gradients_threshold": 1e-12,
+        }), device=dev)
+    windows = record_windows(trainer, memory=True)
+    densify_after = []  # windows run before each densify round
+    apply = trainer.densify_apply
+
+    def densify_apply(scene, info, generator):
+        densify_after.append(len(windows))
+        return apply(scene, info, generator)
+
+    trainer.densify_apply = densify_apply
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    state, loop_ms = synced_ms(trainer.train)
+    peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    peak_allocated = torch.cuda.max_memory_allocated() / 2 ** 30
+    sizes = sorted({tuple(r["size"]) for r in windows})
+    got = [(sizes.index(tuple(r["size"])), r["sh_band"]) for r in windows]
+    before = [r["held_before_gib"] for r in windows]
+    # one half-size graph held before windows 2 and 4 alike (its first
+    # capture's growth, from held0, is the scale)
+    growth = before[3] - before[1] if len(before) > 3 else float("nan")
+    print(f"  (e) {REUSE_ITERS} iterations, windows (size, band) {got}, "
+          f"densify rounds after windows {densify_after}; {windows}; held "
+          f"{held0:.3f} GiB before train(), growth from before window 2 to "
+          f"before window 4 (a band change between) {growth:.3f} GiB; peak "
+          f"reserved {peak_reserved:.3f} GiB, allocated "
+          f"{peak_allocated:.3f} GiB; {loop_ms:.1f} ms", flush=True)
+    if got != REUSE_WINDOWS or [r["captured"] for r in windows] \
+            != [True, False, True, False, True] or any(
+                r["graphs_held"] != 1 for r in windows):
+        raise AssertionError("the windows did not replay, recapture and "
+                             f"release as scheduled: {windows}")
+    if not {1, 3} <= set(densify_after):
+        raise AssertionError("no densify round before the replays of "
+                             f"windows 2 and 4: {densify_after}")
+    if not growth < 0.5 * (before[1] - held0):
+        raise AssertionError(f"the memory held grew by {growth:.3f} GiB "
+                             "across a band change")
+    if not bool(torch.isfinite(state.scene.features).all()):
+        raise AssertionError("non-finite features after the loop")
+    log_dir.cleanup()
+    return {"window_reuse_windows": windows,
+            "window_reuse_densify_after": densify_after,
+            "window_reuse_held0_gib": held0,
+            "window_reuse_band_change_growth_gib": growth,
+            "window_reuse_peak_reserved_gib": peak_reserved,
+            "window_reuse_peak_allocated_gib": peak_allocated,
+            "window_reuse_loop_ms": loop_ms}
+
+
 # --- main -------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2695,6 +3085,16 @@ def main(argv=None) -> int:
     # launches around each path
     multi = run_multi_rank(xyz, feats, frames, Path(work_dir.name), phase)
     work_dir.cleanup()
+    # phase 14: windows of steps, each one CUDA graph replay; the launches
+    # come from the profiler's trace of replays
+    phase("phase 14: windowed training at full width (one CUDA graph a "
+          "window)")
+    windowed = run_windowed(xyz, feats, renderer.camera, {"tile_size": TILE},
+                            {"step_ms": train["train_ms_per_step"],
+                             "device_ms": train["train_device_ms_per_step"]})
+    windowed.update(run_window_loop(xyz, feats, K_np,
+                                    loop["loop_ms_per_iteration"]))
+    windowed.update(run_window_reuse(xyz, feats, K_np))
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -2793,6 +3193,11 @@ def main(argv=None) -> int:
             "launches_mh_smoke_per_rank": [
                 sum(r[c] for c in counters)
                 for r in multi["mh_smoke"]["launches"]],
+            # phase 14: a window of WINDOW steps, counted from the
+            # profiler's trace of its replays
+            "launches_window_replay": windowed["window_launches"][name],
+            "ms_window_replay": windowed["window_profile"][
+                "kernel_ms_under_replay"][name],
             "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -2820,7 +3225,7 @@ def main(argv=None) -> int:
         "render_first_design_calls": off_path,
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
-        **train, **loop, **pose, **viewer, **dataset, **ftgmm,
+        **train, **loop, **pose, **viewer, **dataset, **ftgmm, **windowed,
         "multi_rank": multi,
         "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
@@ -2838,7 +3243,11 @@ def main(argv=None) -> int:
           f"ftgmm {ftgmm['ftgmm_ms']:.1f} ms; two ranks sharing the card: "
           f"DP step {[r['ms_per_step'] for r in multi['dp_two_ranks']['two_views']]}"
           f" ms, band-parallel step at 1920x1088 "
-          f"{[r['ms_per_step'] for r in multi['tp']]} ms", flush=True)
+          f"{[r['ms_per_step'] for r in multi['tp']]} ms; windowed step "
+          f"{windowed['window_ms_per_step']:.3f} ms ({WINDOW} steps a graph "
+          f"replay), the loop with windows "
+          f"{windowed['window_loop_ms_per_iteration']:.2f} ms an iteration",
+          flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -61,8 +61,10 @@ def train_state_from_jax(scene, feat_adam, pos_adam, ctrl, pose_deltas=None,
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     def adam(s):
+        count = int(np.asarray(_field(s, "count")))
         return AdamState(mu=put(_field(s, "mu")), nu=put(_field(s, "nu")),
-                         count=int(np.asarray(_field(s, "count"))))
+                         count=torch.full((), count, dtype=torch.int64,
+                                          device=device))
 
     return TrainState(
         scene=scene_from_jax_arrays(

@@ -23,7 +23,13 @@
 // goes to the sentinel when the blend quadratic's minimum over the tile's
 // pixel-centre rectangle exceeds logro + log 255 + margin; the fused int32
 // sort key (tid << dbits) + dkey or the sentinel. It writes the fused key
-// and the owner of every slot, 16-byte stores.
+// and the owner of every slot, 16-byte stores. In its capped mode (the
+// windowed train step's static key capacity) the buffer holds `total` =
+// key_cap slots and the key total is read from device memory, so no host
+// sync sizes the launch: the slots of the first min(key total, key_cap)
+// decode as above, the rest are padding (the sentinel, owner 0), and the
+// keys of slots past key_cap, the surplus keys of the highest-index
+// points, are dropped, as the TPU kernel drops them.
 //
 // K1b, sorted_table_kernel: one pass over the sorted positions i. With
 // s = perm[i] (perm NULL: s = i), p = owner[s], tid = fused_s[i] >> dbits
@@ -106,19 +112,41 @@ __device__ int binary_owner(const int* offs, int lo, int hi, int key) {
   return lo;
 }
 
+// Padding slots k0 .. k0 + kSlotsPerThread - 1 below total: the sentinel,
+// owned by point 0.
+__device__ void pad_slots(int k0, int total, int sentinel,
+                          int* __restrict__ fused, int* __restrict__ owner) {
+#pragma unroll
+  for (int s = 0; s < kSlotsPerThread; ++s) {
+    if (k0 + s < total) {
+      fused[k0 + s] = sentinel;
+      owner[k0 + s] = 0;
+    }
+  }
+}
+
 }  // namespace
 
 __global__ void __launch_bounds__(kSlotThreads)
 slot_keys_kernel(const int* __restrict__ offsets,
                  const int* __restrict__ dkey, const int* __restrict__ base,
                  const int* __restrict__ h, Columns col, int n, int total,
-                 int tiles_u, int tile_w, int tile_h, int dbits, int sentinel,
+                 const long long* __restrict__ key_total, int tiles_u,
+                 int tile_w, int tile_h, int dbits, int sentinel,
                  int exact_cull, float cull_bias, int* __restrict__ fused,
                  int* __restrict__ owner) {
   __shared__ int s_off[kStage];
   __shared__ int s_ends[2];
+  // the slots that hold keys; the rest of the buffer is padding
+  const int live =
+      key_total ? (int)max(0LL, min(*key_total, (long long)total)) : total;
   const int run0 = blockIdx.x * kRun;
-  const int run_last = min(run0 + kRun, total) - 1;
+  if (run0 >= live) {  // the whole block is padding
+    pad_slots(run0 + threadIdx.x * kSlotsPerThread, total, sentinel, fused,
+              owner);
+    return;
+  }
+  const int run_last = min(run0 + kRun, live) - 1;
   if (threadIdx.x < 32) {
     const int key = threadIdx.x < 16 ? run0 : run_last;
     const int p = half_warp_owner(offsets, 0, n, key);
@@ -134,7 +162,10 @@ slot_keys_kernel(const int* __restrict__ offsets,
   }
   __syncthreads();
   const int k0 = run0 + threadIdx.x * kSlotsPerThread;
-  if (k0 >= total) return;
+  if (k0 >= live) {
+    pad_slots(k0, total, sentinel, fused, owner);
+    return;
+  }
   const int* offs = staged ? s_off : offsets + p_lo;
   int i = binary_owner(offs, 0, m, k0);
 
@@ -144,7 +175,7 @@ slot_keys_kernel(const int* __restrict__ offsets,
   Conic c{0.f, 0.f, 0.f};
 #pragma unroll
   for (int s = 0; s < kSlotsPerThread; ++s) {
-    const int k = min(k0 + s, total - 1);  // the tail repeats a slot
+    const int k = min(k0 + s, live - 1);  // the tail repeats a slot
     while (i + 1 < m && offs[i + 1] <= k) ++i;
     const int p = p_lo + i;
     if (p != cur) {
@@ -174,8 +205,9 @@ slot_keys_kernel(const int* __restrict__ offsets,
                                     0.5f - v_raw, ((float)tile_h - 0.5f) - v_raw);
       valid = !(qmin > logro + cull_bias);
     }
-    out_key[s] = valid ? (tid << dbits) + dk : sentinel;
-    out_owner[s] = p;
+    const bool key = k0 + s < live;  // else padding
+    out_key[s] = key && valid ? (tid << dbits) + dk : sentinel;
+    out_owner[s] = key ? p : 0;
   }
   if (k0 + kSlotsPerThread <= total) {
     *reinterpret_cast<int4*>(fused + k0) =
@@ -219,17 +251,20 @@ sorted_table_kernel(const int* __restrict__ fused_s,
 }
 
 // K1a. attr: (10, n) f32 point columns; fused, owner: (total,) i32.
-// 0 <= total; n >= 1 when total > 0.
+// key_total: NULL (total is the key total), or the capped mode's (1,) i64
+// key total on the device, which may exceed total. 0 <= total; n >= 1 when
+// total > 0.
 extern "C" int slot_keys_launch(const int* offsets, const int* dkey,
                                 const int* base, const int* h,
                                 const float* attr, int n, int total,
-                                int tiles_u, int tile_w, int tile_h, int dbits,
+                                const long long* key_total, int tiles_u,
+                                int tile_w, int tile_h, int dbits,
                                 int sentinel, int exact_cull, float cull_bias,
                                 int* fused, int* owner, cudaStream_t stream) {
   if (total == 0) return 0;
   const int blocks = (total + kRun - 1) / kRun;
   slot_keys_kernel<<<blocks, kSlotThreads, 0, stream>>>(
-      offsets, dkey, base, h, Columns{attr, n}, n, total,
+      offsets, dkey, base, h, Columns{attr, n}, n, total, key_total,
       tiles_u, tile_w, tile_h, dbits, sentinel, exact_cull, cull_bias, fused,
       owner);
   return (int)cudaGetLastError();

@@ -94,9 +94,11 @@ def compute_point_attributes(
 
 
 def _sh_band_mask(max_band: int, dtype, device) -> torch.Tensor:
-    """(16,) mask keeping coefficients of bands <= max_band."""
-    band = torch.tensor(_COEFF_BAND, dtype=torch.int32, device=device)
-    return (band <= int(max_band)).to(dtype)
+    """(16,) mask keeping coefficients of bands <= max_band: band b holds
+    coefficients [b^2, (b + 1)^2) (``_COEFF_BAND``). Made on the device, so
+    no host copy (which a CUDA graph could not capture) feeds the step."""
+    keep = (int(max_band) + 1) ** 2
+    return (torch.arange(len(_COEFF_BAND), device=device) < keep).to(dtype)
 
 
 def frustum_cull_mask(

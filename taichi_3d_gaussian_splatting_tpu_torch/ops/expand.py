@@ -6,6 +6,14 @@ per covered tile, decoded u-major within its tile bbox. The port sizes the
 key buffer to the exact total, so there are no padding slots; keys retired
 by the exact cull get the sentinel and sort past every tile's range.
 
+``key_total`` selects the capped mode of the windowed train step: the
+buffer holds ``total`` = key_cap slots and the key total is a device
+scalar, read by the kernel, never by the host. The first min(key total,
+key_cap) slots decode as above; the rest are padding (the sentinel, owned
+by point 0), and the surplus keys of the highest-index points, those of
+slots past key_cap, are dropped, as the JAX package's ``key_cap`` drops
+them.
+
 The TPU kernel wrote the keys and the table in pre-sort order, and the sort
 carried the table as its payload. Here the main path runs two kernels
 around the sort instead: ``slot_keys`` (K1a) writes the fused key and the
@@ -21,6 +29,7 @@ point columns as 0.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -61,15 +70,24 @@ def rect_qmin(ca, cb, cc, x0, x1, y0, y1):
 
 
 def _slot_decode(offsets, counts, dkey, base, h, attr_cols, total, tiles_u,
-                 tile_w, tile_h, dbits, sentinel, exact_cull):
+                 tile_w, tile_h, dbits, sentinel, exact_cull, key_total=None):
     """Owner p (int64), tile-local centre (u_raw, v_raw), validity and
     fused key of every slot, and the owners' columns."""
     attr_cols = torch.nan_to_num(attr_cols, nan=0.0, posinf=0.0, neginf=0.0)
     n = offsets.shape[0]
     dev = offsets.device
-    p = torch.repeat_interleave(torch.arange(n, device=dev), counts.long(),
-                                output_size=total)
     k = torch.arange(total, device=dev, dtype=torch.int32)
+    live = None
+    if key_total is None:
+        p = torch.repeat_interleave(torch.arange(n, device=dev),
+                                    counts.long(), output_size=total)
+    else:
+        # the cap-sized owner: the last point whose offset is <= k (a
+        # zero-count point before the owner shares its offset); padding
+        # slots take point 0
+        live = k < torch.clamp(key_total, 0, total)
+        p = torch.searchsorted(offsets, k, right=True) - 1
+        p = torch.where(live, p, torch.zeros_like(p))
     j = k - offsets[p]
     hh = torch.clamp_min(h[p], 1)
     du = torch.div(j, hh, rounding_mode="trunc")
@@ -87,6 +105,8 @@ def _slot_decode(offsets, counts, dkey, base, h, attr_cols, total, tiles_u,
                          (tile_w - 0.5) - u_raw, 0.5 - v_raw,
                          (tile_h - 0.5) - v_raw)
         valid = ~(qmin > a[5] + CULL_BIAS)
+    if live is not None:
+        valid = valid & live
 
     fused = torch.where(valid, (tid << dbits) + dkey[p],
                         torch.full_like(tid, sentinel))
@@ -105,22 +125,25 @@ def _table(u_raw, v_raw, valid, a, p):
 
 
 def expand_keys_plain(offsets, counts, dkey, base, h, attr_cols, *, total,
-                      tiles_u, tile_w, tile_h, dbits, sentinel, exact_cull):
+                      tiles_u, tile_w, tile_h, dbits, sentinel, exact_cull,
+                      key_total=None):
     """Plain PyTorch version of :func:`expand_keys` (same contract), from
     the slot decode alone."""
     p, u_raw, v_raw, valid, fused, a = _slot_decode(
         offsets, counts, dkey, base, h, attr_cols, total, tiles_u, tile_w,
-        tile_h, dbits, sentinel, exact_cull)
+        tile_h, dbits, sentinel, exact_cull, key_total)
     return fused, _table(u_raw, v_raw, valid, a, p)
 
 
 def slot_keys_plain(offsets, counts, dkey, base, h, attr_cols, *, total,
-                    tiles_u, tile_w, tile_h, dbits, sentinel, exact_cull):
+                    tiles_u, tile_w, tile_h, dbits, sentinel, exact_cull,
+                    key_total=None):
     """Plain PyTorch version of :func:`slot_keys`: the fused keys of
-    :func:`expand_keys_plain` and the owner from ``repeat_interleave``."""
+    :func:`expand_keys_plain` and the owner from ``repeat_interleave`` (in
+    the capped mode from ``searchsorted`` over the offsets)."""
     p, _, _, _, fused, _ = _slot_decode(
         offsets, counts, dkey, base, h, attr_cols, total, tiles_u, tile_w,
-        tile_h, dbits, sentinel, exact_cull)
+        tile_h, dbits, sentinel, exact_cull, key_total)
     return fused, p.to(torch.int32)
 
 
@@ -146,14 +169,19 @@ def _require_columns(attr_cols, n: int) -> None:
 
 def slot_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
               tiles_u: int, tile_w: int, tile_h: int, dbits: int,
-              sentinel: int, exact_cull: bool):
+              sentinel: int, exact_cull: bool,
+              key_total: Optional[torch.Tensor] = None):
     """K1a: the fused sort key and the owning point of every key slot.
 
     offsets, counts, dkey, base, h: (N,) int32 per point (key-slot offset,
     the exclusive cumsum of counts; covered-tile count; depth key; first
     covered tile id; bbox tile height); attr_cols: (10, N) f32 [u, v, conic
     a, b, c, log(rescale*opacity), r, g, b, depth], non-finite entries read
-    as 0. ``total`` must equal counts.sum().
+    as 0. ``total`` must equal counts.sum(); in the capped mode
+    (``key_total``, the () int64 key total on the tensors' device, which
+    may exceed ``total``) ``total`` is the key capacity: the slots from
+    min(key_total, total) on are padding (sentinel, owner 0) and the keys
+    past the capacity are dropped.
 
     Returns (fused (total,) int32, owner (total,) int32), pre-sort order.
     """
@@ -166,8 +194,16 @@ def slot_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
         raise ValueError(f"slot_keys: per-point inputs must be (N,); N={n}")
     if not 0 <= total < 2 ** 31:
         raise ValueError(f"slot_keys: total={total} outside int32 slots")
+    if key_total is not None:
+        cuda_build.require(key_total, "key_total", torch.int64, 0)
+        if key_total.device != offsets.device:
+            raise ValueError("slot_keys: key_total lies on another device")
+        if total > 0 and n == 0:
+            raise ValueError("slot_keys: padding slots need a point to own "
+                             "them")
     kw = dict(total=total, tiles_u=tiles_u, tile_w=tile_w, tile_h=tile_h,
-              dbits=dbits, sentinel=sentinel, exact_cull=exact_cull)
+              dbits=dbits, sentinel=sentinel, exact_cull=exact_cull,
+              key_total=key_total)
     if offsets.device.type == "cpu":
         return slot_keys_plain(offsets, counts, dkey, base, h, attr_cols,
                                **kw)
@@ -178,13 +214,15 @@ def slot_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
         return fused, owner
     launch = cuda_build.bind("expand", "slot_keys_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
     err = launch(offsets.data_ptr(), dkey.data_ptr(), base.data_ptr(),
-                 h.data_ptr(), attr_cols.data_ptr(), n, total, tiles_u,
-                 tile_w, tile_h, dbits, sentinel, int(exact_cull), CULL_BIAS,
-                 fused.data_ptr(), owner.data_ptr(),
+                 h.data_ptr(), attr_cols.data_ptr(), n, total,
+                 None if key_total is None else key_total.data_ptr(),
+                 tiles_u, tile_w, tile_h, dbits, sentinel, int(exact_cull),
+                 CULL_BIAS, fused.data_ptr(), owner.data_ptr(),
                  cuda_build.stream_of(offsets))
     cuda_build.check(err, "slot_keys")
     slot_keys.launches += 1
@@ -237,7 +275,8 @@ def sorted_table(fused_s, perm, owner, attr_cols, *, tiles_u: int,
 
 def expand_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
                 tiles_u: int, tile_w: int, tile_h: int, dbits: int,
-                sentinel: int, exact_cull: bool):
+                sentinel: int, exact_cull: bool,
+                key_total: Optional[torch.Tensor] = None):
     """Expand points into their tile keys: the JAX contract.
 
     Inputs as :func:`slot_keys`'s. Returns (fused (total,) int32, table
@@ -247,7 +286,7 @@ def expand_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
     fused, owner = slot_keys(offsets, counts, dkey, base, h, attr_cols,
                              total=total, tiles_u=tiles_u, tile_w=tile_w,
                              tile_h=tile_h, dbits=dbits, sentinel=sentinel,
-                             exact_cull=exact_cull)
+                             exact_cull=exact_cull, key_total=key_total)
     return fused, sorted_table(fused, None, owner, attr_cols, tiles_u=tiles_u,
                                tile_w=tile_w, tile_h=tile_h, dbits=dbits,
                                sentinel=sentinel)

@@ -50,10 +50,15 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 class RasterizerConfig:
     """The JAX package's RasterizerConfig, field for field.
 
-    ``key_cap``, ``blend_chunk``, ``blend_strips``, ``candidate_mode``,
-    ``cand_scale`` and ``interpret`` size or steer the TPU kernels; they are
-    accepted so that one config serves both packages, and ignored here
-    (the key buffer is sized to each frame's exact total).
+    ``key_cap`` is the static key capacity of the windowed train step
+    (``trainer.make_train_step`` with ``scan_steps``, and the trainer's
+    ``steps_per_dispatch`` windows, which start from it and refit it): its
+    key buffers are (key_cap,) and the keys past it are dropped, as the JAX
+    package drops them. Every other path sizes its key buffer to the
+    frame's exact total and reads no capacity. ``blend_chunk``,
+    ``blend_strips``, ``candidate_mode``, ``cand_scale`` and ``interpret``
+    size or steer the TPU kernels; they are accepted so that one config
+    serves both packages, and ignored here.
     ``pack_sort_colors`` with ``rgb_only`` rounds the blend table's r and g
     to bf16, as the JAX package's sort carrier does; without ``rgb_only`` it
     is ignored, as there."""
@@ -231,9 +236,10 @@ def attr_columns(raw: RawAttrs, pack_colors: bool = False) -> torch.Tensor:
 
 @torch.no_grad()
 def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
-               cfg: RasterizerConfig):
+               cfg: RasterizerConfig, key_cap: Optional[int] = None):
     """Tiling stage. Returns (keys, sorted (16, total) blend table, visible
-    mask). Takes no gradient."""
+    mask); with ``key_cap`` the capped key buffers
+    (``tiling.build_tile_keys_and_table``). Takes no gradient."""
     visible = frustum_cull_mask(
         raw.uv, raw.depth, invalid_mask, camera.width, camera.height,
         cfg.near_plane, cfg.far_plane, _cfg_tile(cfg),
@@ -242,7 +248,7 @@ def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
         raw.uv, raw.depth, radius, visible, camera.width, camera.height,
         _cfg_tile(cfg), cfg.depth_to_sort_key_scale,
         attr_cols=attr_columns(raw, cfg.pack_sort_colors and cfg.rgb_only),
-        exact_tile_cull=cfg.exact_tile_cull)
+        exact_tile_cull=cfg.exact_tile_cull, key_cap=key_cap)
     return keys, table, visible
 
 
@@ -364,12 +370,14 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
 def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
                       t_pointcloud_camera, camera: Camera,
                       cfg: RasterizerConfig, sh_max_band=3,
-                      point_object_id=None, with_pose_grads: bool = False):
+                      point_object_id=None, with_pose_grads: bool = False,
+                      key_cap: Optional[int] = None):
     """Forward pass returning (output, RenderContext, attrs_vjp) for
     ``rasterize_bwd``. ``attrs_vjp(d_raw)`` maps raw-attribute cotangents
     to (d_xyz, d_features), or with ``with_pose_grads`` to (d_xyz,
     d_features, d_q, d_t), by autograd of ``compute_raw_attrs``; it can be
-    called once. The output carries no graph."""
+    called once. The output carries no graph. ``key_cap`` selects the
+    capped key buffers (``build_keys``)."""
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
     pin_f32_matmul()
@@ -385,7 +393,7 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
         # radius only feeds the tiling stage: it is cut from the graph
         raw_values = RawAttrs(*(a.detach() for a in raw))
         keys, table, visible = build_keys(raw_values, radius.detach(),
-                                          invalid_mask, camera, cfg)
+                                          invalid_mask, camera, cfg, key_cap)
         out_tiles = _blend(table, keys, tile, (camera.width // tile[0],
                                                camera.height // tile[1]), cfg)
         out = _assemble(out_tiles, camera, cfg)

@@ -1,9 +1,23 @@
 """Tile binning: tile bbox -> per-tile depth-sorted key lists.
 
 Port of the contract of ``taichi_3d_gaussian_splatting_tpu/ops/tiling.py``
-(``tile_bbox``, ``build_tile_keys_and_table``), not of its TPU machinery:
-the key buffer is sized to the exact per-frame total (one host sync per
-frame), so no key is ever dropped and no capacity has to be fitted.
+(``tile_bbox``, ``build_tile_keys_and_table``), not of its TPU machinery.
+Two sizings of the key buffer:
+
+- exact (``key_cap=None``, every path but the windowed train step): the
+  buffer is sized to the frame's key total (one host sync per frame), so
+  no key is ever dropped and no capacity has to be fitted;
+- capped (``key_cap`` an int, the JAX package's static capacity): the
+  buffers are (key_cap,), the key total stays a device scalar that no host
+  code reads, and no host sync is left, so a window of steps can be
+  captured in one CUDA graph. Slots from min(total, key_cap) on hold the
+  sentinel and sort after every tile; if the total exceeds key_cap, the
+  surplus keys of the highest-index points (those of slots past key_cap)
+  are dropped, as the JAX package drops them (the true total lets the
+  trainer grow the capacity). The per-point counts are clipped on the
+  device to the keys kept, so the backward's segment sum walks only slots
+  below key_cap. With key_cap above the total, the sorted keys, table rows
+  and tile ranges of the live keys are the exact path's.
 
 What matches the JAX package exactly: the per-point counts, offsets and
 total; the fused key ``tid << dbits | dkey`` with the truncating
@@ -93,16 +107,21 @@ def _depth_bits(num_tiles: int) -> int:
 
 class TileKeys(NamedTuple):
     """Depth-sorted per-tile key lists. Tile t's keys occupy
-    [tile_start[t], tile_end[t]); keys retired by the exact cull hold the
-    sentinel and sort after every tile's range."""
+    [tile_start[t], tile_end[t]); keys retired by the exact cull and the
+    capped path's padding hold the sentinel and sort after every tile's
+    range. The buffers are (total,) on the exact path, (key_cap,) on the
+    capped one."""
 
     fused: torch.Tensor       # (total,) int32 sorted fused keys
     orig_slot: torch.Tensor   # (total,) int64 pre-sort slot of each key
     tile_start: torch.Tensor  # (num_tiles,) int32
     tile_end: torch.Tensor    # (num_tiles,) int32
     offsets: torch.Tensor     # (N,) int32 exclusive cumsum of counts
-    counts: torch.Tensor      # (N,) int32 per-point key counts (masked)
-    total: int                # number of keys
+    counts: torch.Tensor      # (N,) int32 per-point key counts (masked;
+                              # capped: the keys kept below key_cap)
+    total: Union[int, torch.Tensor]  # number of keys: a host int, or on
+                              # the capped path a () int64 device scalar,
+                              # the true total (may exceed key_cap)
 
 
 class PointKeyRanges(NamedTuple):
@@ -113,12 +132,16 @@ class PointKeyRanges(NamedTuple):
     dkey: torch.Tensor        # clipped fixed-point depth key
     base: torch.Tensor        # first covered tile id
     h: torch.Tensor           # bbox height in tiles
-    total: int
+    total: Union[int, torch.Tensor]  # host int; () int64 device scalar
+                                     # with key_cap
 
 
 def point_key_ranges(uv, depth, radius, visible, width: int, height: int,
-                     tile, depth_to_sort_key_scale: float) -> PointKeyRanges:
-    """Tile bbox, key counts and slot offsets of every point."""
+                     tile, depth_to_sort_key_scale: float,
+                     key_cap: Optional[int] = None) -> PointKeyRanges:
+    """Tile bbox, key counts and slot offsets of every point. The key
+    total is read to the host (the exact path's one sync), or with
+    ``key_cap`` left on the device; the counts are not clipped here."""
     tile_w, tile_h = tile_wh(tile)
     tiles_u = width // tile_w
     dbits = _depth_bits(tiles_u * (height // tile_h))
@@ -126,9 +149,13 @@ def point_key_ranges(uv, depth, radius, visible, width: int, height: int,
     counts = (bbox.max_u - bbox.min_u) * (bbox.max_v - bbox.min_v)
     counts = torch.where(visible, counts, torch.zeros_like(counts))
     csum = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(csum[-1]) if counts.numel() else 0  # the one host sync
-    if total >= 2 ** 31:
-        raise ValueError(f"{total} tile keys overflow int32 key slots")
+    if key_cap is not None:
+        total = (csum[-1] if counts.numel()
+                 else torch.zeros((), dtype=torch.int64, device=uv.device))
+    else:
+        total = int(csum[-1]) if counts.numel() else 0  # the one host sync
+        if total >= 2 ** 31:
+            raise ValueError(f"{total} tile keys overflow int32 key slots")
     offsets = (csum - counts).to(torch.int32)
     # int32(depth * scale) truncates toward zero, as the JAX astype does
     dkey = torch.clamp((depth * depth_to_sort_key_scale).to(torch.int32),
@@ -149,9 +176,11 @@ def build_tile_keys_and_table(
     depth_to_sort_key_scale: float = 2.0 ** 10,
     attr_cols: Optional[torch.Tensor] = None,
     exact_tile_cull: bool = True,
+    key_cap: Optional[int] = None,
 ) -> Tuple[TileKeys, torch.Tensor]:
     """Expand visible splats into depth-sorted per-tile keys and the sorted
-    (16, total) blend table.
+    (16, total) blend table; (16, key_cap) on the capped path
+    (``key_cap``, see the module docstring).
 
     ``attr_cols``: (10, N) f32 [u, v, conic_a, conic_b, conic_c,
     log(rescale*opacity), r, g, b, depth]; non-finite entries become 0.
@@ -165,25 +194,38 @@ def build_tile_keys_and_table(
     dbits = _depth_bits(num_tiles)
     sentinel = ((num_tiles + 1) << dbits) - 1
 
+    if key_cap is not None and not 0 < key_cap < 2 ** 31:
+        raise ValueError(f"key_cap={key_cap} outside int32 key slots")
     r = point_key_ranges(uv, depth, radius, visible, width, height, tile,
-                         depth_to_sort_key_scale)
+                         depth_to_sort_key_scale, key_cap)
     has_attrs = attr_cols is not None
     if not has_attrs:
         attr_cols = torch.zeros((10, uv.shape[0]), dtype=torch.float32,
                                 device=uv.device)
     att = attr_cols.contiguous()  # non-finite entries: the kernels read 0
+    capped = key_cap is not None
     fused, owner = expand_mod.slot_keys(
-        r.offsets, r.counts, r.dkey, r.base, r.h, att, total=r.total,
-        tiles_u=tiles_u, tile_w=tile_w, tile_h=tile_h, dbits=dbits,
-        sentinel=sentinel, exact_cull=exact_tile_cull and has_attrs)
+        r.offsets, r.counts, r.dkey, r.base, r.h, att,
+        total=key_cap if capped else r.total, tiles_u=tiles_u, tile_w=tile_w,
+        tile_h=tile_h, dbits=dbits, sentinel=sentinel,
+        exact_cull=exact_tile_cull and has_attrs,
+        key_total=r.total if capped else None)
     fused_s, perm = torch.sort(fused, stable=True)
     table_s = expand_mod.sorted_table(
         fused_s, perm, owner, att, tiles_u=tiles_u, tile_w=tile_w,
         tile_h=tile_h, dbits=dbits, sentinel=sentinel)
     bounds = histogram_mod.tile_ranges(fused_s, dbits, num_tiles)
+    counts = r.counts
+    if capped:
+        # the keys each point keeps below key_cap: min(end, cap) -
+        # min(start, cap) of its slot range
+        end = r.offsets.long() + r.counts
+        counts = (torch.clamp_max(end, key_cap)
+                  - torch.clamp_max(r.offsets.long(), key_cap)).to(
+                      torch.int32)
     keys = TileKeys(
         fused=fused_s, orig_slot=perm, tile_start=bounds[:-1],
-        tile_end=bounds[1:], offsets=r.offsets, counts=r.counts,
+        tile_end=bounds[1:], offsets=r.offsets, counts=counts,
         total=r.total,
     )
     return keys, table_s

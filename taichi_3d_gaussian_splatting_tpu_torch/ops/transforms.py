@@ -77,7 +77,9 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    # negation, not a product with a host constant: the train step makes
+    # no host-to-device copy, so a CUDA graph can capture it
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quaternion_exp(omega: torch.Tensor) -> torch.Tensor:

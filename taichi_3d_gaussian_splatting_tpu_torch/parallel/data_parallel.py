@@ -44,12 +44,12 @@ from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
     POSE_B1,
     POSE_B2,
     POSE_EPS,
+    DP_WINDOWS_REFUSAL,
     TrainState,
     apply_grads,
     camera_pass,
     grad_factor_vector,
     make_optimizers,
-    refuse_scan_steps,
     train_rasterizer_config,
 )
 
@@ -71,8 +71,12 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
     over visible cameras, and the display arrays (``pred``, ``depth_img``,
     ``count_img``, ``point_uv``, ``imggrad``) of global batch row 0 on rank
     0, the rank that logs (other ranks hold their own first row's).
-    ``step.collectives`` lists the collectives of the last call."""
-    refuse_scan_steps(scan_steps)
+    ``step.collectives`` lists the collectives of the last call.
+    ``scan_steps`` > 0 (a window of steps) raises NotImplementedError: the
+    single-device step's windows are ported, the data-parallel ones not
+    yet."""
+    if scan_steps > 0:
+        raise NotImplementedError(DP_WINDOWS_REFUSAL)
     rcfg = train_rasterizer_config(config)
     lcfg = config.loss_function_config
     optimizers = make_optimizers(config)

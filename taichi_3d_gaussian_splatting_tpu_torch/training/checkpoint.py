@@ -33,7 +33,8 @@ POSE_OPT_KEYS = ("mu", "nu", "count")
 
 def state_leaves(state: TrainState) -> List:
     """The state's leaves in their fixed order: the scene's four tensors,
-    each Adam's mu, nu and count (an int), the controller's six tensors,
+    each Adam's mu, nu and count (a () int64 tensor, saved as an int64
+    scalar), the controller's six tensors,
     and when the state has them the pose deltas and their Adam's mu, nu
     and per-row count."""
     leaves = list(state.scene)
@@ -48,8 +49,10 @@ def state_leaves(state: TrainState) -> List:
 
 def _state_from_leaves(leaves: List) -> TrainState:
     scene = GaussianScene(*leaves[0:4])
-    feat = AdamState(leaves[4], leaves[5], int(leaves[6]))
-    pos = AdamState(leaves[7], leaves[8], int(leaves[9]))
+    # an Adam count comes back as the template holds it: a device tensor
+    # (or a host int)
+    feat = AdamState(leaves[4], leaves[5], leaves[6])
+    pos = AdamState(leaves[7], leaves[8], leaves[9])
     n_ctrl = len(ControllerState._fields)
     pose = leaves[10 + n_ctrl:]
     return TrainState(scene=scene, feat_opt=feat, pos_opt=pos,
@@ -62,7 +65,7 @@ def _state_from_leaves(leaves: List) -> TrainState:
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
-    return np.asarray(leaf, np.int64)  # an Adam count
+    return np.asarray(leaf, np.int64)  # an Adam count held as a host int
 
 
 def _spec(leaf) -> Tuple[tuple, str]:

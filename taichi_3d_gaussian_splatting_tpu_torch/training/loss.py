@@ -29,6 +29,20 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+_WINDOWS: dict = {}
+
+
+def _window_on(device, size: int, sigma: float) -> torch.Tensor:
+    """The window as a tensor on ``device``, copied there once: a CUDA
+    graph of the train step cannot capture a host-to-device copy."""
+    key = (str(device), size, sigma)
+    win = _WINDOWS.get(key)
+    if win is None:
+        win = _WINDOWS[key] = torch.from_numpy(
+            _gaussian_window(size, sigma)).to(device)
+    return win
+
+
 def _blur(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     """Separable 'valid' Gaussian blur of an (H, W, C) image: (H-k+1,
     W-k+1, C)."""
@@ -48,8 +62,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
         raise ValueError(
             f"SSIM needs images >= {win_size}px per side, got "
             f"{img1.shape[0]}x{img1.shape[1]}")
-    win = torch.from_numpy(_gaussian_window(win_size, win_sigma)).to(
-        img1.device)
+    win = _window_on(img1.device, win_size, win_sigma)
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
     mu1 = _blur(img1, win)

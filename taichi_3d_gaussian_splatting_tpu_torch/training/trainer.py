@@ -1,10 +1,10 @@
-"""Training: one step, the densify and eval steps, and the training loop.
+"""Training: one step, windows of steps, the densify and eval steps, and
+the training loop.
 
-Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py``, without
-``scan_steps`` windows; the multi-device steps the loop drives are in
-``parallel/``.
+Port of ``taichi_3d_gaussian_splatting_tpu/training/trainer.py``; the
+multi-device steps the loop drives are in ``parallel/``.
 
-``make_train_step`` (without ``scan_steps``): the step runs forward
+``make_train_step``: the step runs forward
 (``rasterize_fwd_ctx``: attributes, tile keys, the blend kernel), the L1 +
 SSIM loss, the backward (``rasterize_bwd``: the blend_backward kernel, the
 segment_reduce kernel reading its sorted rows through the inverse key
@@ -17,17 +17,38 @@ the view it trains on: the pose is composed with that view's se(3) delta
 and one exact Adam step moves that delta's row alone (its own count and
 bias correction), as the JAX step does.
 
+The key capacity. The single step sizes its key buffers to each frame's
+exact total, which costs one host sync a step. With ``key_cap`` (the JAX
+package's static capacity, ``RasterizerConfig.key_cap``) the buffers are
+(key_cap,), the key total stays on the device and the step has no host
+sync; keys past the capacity are dropped, as the JAX package drops them
+(``ops/tiling.py``). ``fit_key_cap`` gives the capacity a key total
+needs.
+
+Windows. ``make_train_step(..., scan_steps=k)`` runs k capped steps a
+call, the JAX package's ``lax.scan`` window. On a card the k steps are one
+``torch.cuda.CUDAGraph``, captured after one eager warm-up and replayed
+each call, so the state lives in the graph's static buffers between
+windows; on the CPU they run in a loop.
+
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
-the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``.
+the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``. Its update
+count, the learning rate's staircase and the pose row are device tensors,
+so no host value of the step is baked into a captured graph.
 
 ``GaussianPointCloudTrainer`` drives the steps: progressive downsample,
 SH-band schedule, densify/prune after warm-up, alpha reset, validation
 with scene exports and a full checkpoint, resume, and metrics to
 TensorBoard (tensorboardX, when importable) and to the console as the
-``key=value;`` lines a SageMaker-style scraper reads. The key buffers are
-sized to each frame's exact total, so the JAX trainer's key-capacity refits
-(``fit_key_cap`` and the candidate-mode refit) have nothing to do here;
-their config fields are accepted and ignored.
+``key=value;`` lines a SageMaker-style scraper reads. With
+``steps_per_dispatch`` k > 1 it runs windows of up to k capped steps between
+the iterations that need host work (``_window_size``), starting from
+``rasterisation_config.key_cap`` and refitting it every 100 iterations from
+the live key total (``_maybe_rebucket_key_cap``). Validation keeps the
+exact sizing: its frames are the JAX trainer's after its eval refit (which
+re-renders a frame whose keys overflow), with no key dropped.
+``candidate_mode`` and ``cand_scale`` only choose how the TPU builds the
+same keys; they are accepted and have no effect here.
 """
 from __future__ import annotations
 
@@ -35,7 +56,7 @@ import collections
 import dataclasses
 import os
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,7 +102,8 @@ def grad_factor_vector(cfg: RasterizerConfig) -> np.ndarray:
 class AdamState(NamedTuple):
     mu: torch.Tensor
     nu: torch.Tensor
-    count: int  # updates applied so far (optax's count)
+    count: torch.Tensor  # () int64 on the device: updates applied so far
+                         # (optax's count)
 
 
 class TrainState(NamedTuple):
@@ -106,18 +128,76 @@ def init_pose_opt(num_images: int, device="cpu") -> dict:
             "count": zeros(num_images)}
 
 
+# (b, device) -> Adam's bias corrections on that device (``_bias_table``)
+_BIAS_TABLES: dict = {}
+
+
+def _bias_table(b: float, device) -> torch.Tensor:
+    """(C,) f32 ``1 - b**c`` for the counts c = 0 .. C - 1, where C - 1 is
+    the first count at which it rounds to 1.0 (and it stays there: 165 for
+    0.9, 17,321 for 0.999), copied to ``device`` once. Computed on the
+    host with numpy's f32 scalar power, so a step on a card takes the
+    same value as on the CPU (the card's own f32 power may differ by an
+    ulp) and a captured graph reads it by the device count."""
+    key = (float(b), str(device))
+    table = _BIAS_TABLES.get(key)
+    if table is None:
+        one, bf = np.float32(1.0), np.float32(b)
+        rows = [np.float32(0.0)]
+        while rows[-1] != one:
+            rows.append(one - bf ** np.float32(len(rows)))
+        table = _BIAS_TABLES[key] = torch.from_numpy(
+            np.asarray(rows, np.float32)).to(device)
+    return table
+
+
+def _over(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``x / d`` for a () tensor ``d``, rounded as PyTorch rounds a division
+    by a host scalar: a card multiplies by d's f32 reciprocal, the CPU
+    divides. So the update equals, bit for bit, the one that takes its
+    bias corrections as host floats (a step with a host count)."""
+    return x * torch.reciprocal(d) if x.is_cuda else x / d
+
+
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """optax.adam with a learning rate that is a function of the count of
-    updates before this one."""
+    """optax.adam whose learning rate is ``lr0 * decay_rate ** (count //
+    decay_interval)`` for the count of updates before this one
+    (optax.exponential_decay with staircase=True), or ``lr0`` with no
+    ``decay_interval``."""
 
-    lr: Callable[[int], float]
+    lr0: float
+    decay_rate: float = 1.0
+    decay_interval: int = 0
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
 
+    def lr(self, count):
+        """The learning rate after ``count`` updates (an int or a () int64
+        tensor, the step's device count): computed in f64, as a Python
+        double computes it, and cast to f32; ``lr0`` with no
+        ``decay_interval``."""
+        if not self.decay_interval:
+            return self.lr0
+        steps = torch.div(torch.as_tensor(count), self.decay_interval,
+                          rounding_mode="floor")
+        return (self.lr0 * torch.pow(self.decay_rate,
+                                     steps.to(torch.float64))).to(
+                                         torch.float32)
+
+    @staticmethod
+    def bias_correction(b: float, count: torch.Tensor) -> torch.Tensor:
+        """``1 - b**count`` in f32, as optax computes it (``_bias_table``),
+        for a () int64 count on any device."""
+        table = _bias_table(b, count.device)
+        return table.index_select(
+            0, torch.clamp_max(count, table.shape[0] - 1).reshape(1))[0]
+
     def init(self, param: torch.Tensor) -> AdamState:
-        return AdamState(torch.zeros_like(param), torch.zeros_like(param), 0)
+        return AdamState(torch.zeros_like(param), torch.zeros_like(param),
+                         torch.zeros((), dtype=torch.int64,
+                                     device=param.device))
 
     def update(self, grad: torch.Tensor, state: AdamState,
                param: torch.Tensor):
@@ -125,10 +205,9 @@ class Adam:
         count = state.count + 1
         mu = (1.0 - self.b1) * grad + self.b1 * state.mu
         nu = (1.0 - self.b2) * (grad * grad) + self.b2 * state.nu
-        # 1 - b**count in f32, as optax computes it
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+        bc1 = self.bias_correction(self.b1, count)
+        bc2 = self.bias_correction(self.b2, count)
+        u = _over(mu, bc1) / (torch.sqrt(_over(nu, bc2)) + self.eps)
         new_param = param + (-self.lr(state.count)) * u
         return new_param, AdamState(mu, nu, count)
 
@@ -137,15 +216,10 @@ def make_optimizers(config: TrainConfig):
     """(feature Adam, position Adam); the position learning rate decays by
     ``position_learning_rate_decay_rate`` every ``..._decay_interval``
     updates (optax.exponential_decay with staircase=True)."""
-    lr_f = config.feature_learning_rate
-    lr0 = config.position_learning_rate
-    rate = config.position_learning_rate_decay_rate
-    interval = config.position_learning_rate_decay_interval
-
-    def position_lr(count: int) -> float:
-        return lr0 * rate ** (count // interval)
-
-    return Adam(lambda count: lr_f), Adam(position_lr)
+    return (Adam(config.feature_learning_rate),
+            Adam(config.position_learning_rate,
+                 config.position_learning_rate_decay_rate,
+                 config.position_learning_rate_decay_interval))
 
 
 def init_train_state(scene: GaussianScene, config: TrainConfig,
@@ -170,24 +244,32 @@ def init_train_state(scene: GaussianScene, config: TrainConfig,
 POSE_B1, POSE_B2, POSE_EPS = 0.9, 0.999, 1e-8
 
 
-def _pose_adam_row(state: TrainState, idx: int, d_delta: torch.Tensor,
-                   lr: float):
-    """One exact Adam step on row ``idx`` of the pose deltas alone, with
-    that row's own count and bias correction: (pose_deltas, pose_opt),
-    new tensors. (A full-matrix Adam would decay every other view's
-    momentum on each step.)"""
+def _pose_adam_row(state: TrainState, idx: torch.Tensor,
+                   d_delta: torch.Tensor, lr: float):
+    """One exact Adam step on row ``idx`` (a () int64 device index) of the
+    pose deltas alone, with that row's own count and bias correction:
+    (pose_deltas, pose_opt), new tensors. (A full-matrix Adam would decay
+    every other view's momentum on each step.) Index -1 moves no row: the
+    update is masked, as the JAX step's ``on = img_idx >= 0``, not
+    branched on the host, so a captured graph holds both cases."""
     po = state.pose_opt
-    mu = POSE_B1 * po["mu"][idx] + (1.0 - POSE_B1) * d_delta
-    nu = POSE_B2 * po["nu"][idx] + (1.0 - POSE_B2) * d_delta * d_delta
-    count = po["count"][idx] + 1.0
+    on = idx >= 0
+    row = torch.clamp_min(idx, 0).reshape(1)
+    mu0, nu0, count0, delta0 = (
+        t.index_select(0, row)[0]
+        for t in (po["mu"], po["nu"], po["count"], state.pose_deltas))
+    mu = POSE_B1 * mu0 + (1.0 - POSE_B1) * d_delta
+    nu = POSE_B2 * nu0 + (1.0 - POSE_B2) * d_delta * d_delta
+    count = count0 + 1.0
     mu_hat = mu / (1.0 - torch.pow(POSE_B1, count))
     nu_hat = nu / (1.0 - torch.pow(POSE_B2, count))
     move = -lr * mu_hat / (torch.sqrt(nu_hat) + POSE_EPS)
-    new = {k: v.clone() for k, v in po.items()}
-    new["mu"][idx], new["nu"][idx], new["count"][idx] = mu, nu, count
-    deltas = state.pose_deltas.clone()
-    deltas[idx] = deltas[idx] + move
-    return deltas, new
+
+    def put(t, old, new):
+        return t.index_copy(0, row, torch.where(on, new, old)[None])
+    return put(state.pose_deltas, delta0, delta0 + move), {
+        "mu": put(po["mu"], mu0, mu), "nu": put(po["nu"], nu0, nu),
+        "count": put(po["count"], count0, count)}
 
 
 class CameraPass(NamedTuple):
@@ -213,7 +295,7 @@ class CameraPass(NamedTuple):
 def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
                 rcfg: RasterizerConfig, lcfg, gf: torch.Tensor, sh_band,
                 delta: Optional[torch.Tensor] = None,
-                band=None) -> CameraPass:
+                band=None, key_cap: Optional[int] = None) -> CameraPass:
     """Forward (``rasterize_fwd_ctx``), the L1 + SSIM loss and the backward
     (``rasterize_bwd``) of one camera, the single-device step's body and
     each data-parallel row's. ``image_gt`` is f32. With ``delta`` (an se(3)
@@ -222,7 +304,8 @@ def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
     (``parallel.tile_parallel.BandSplit``, no ``delta``) this rank renders
     and backpropagates its band of the image, the loss sees the full image,
     and the gradients and statistics are the full image's on every rank;
-    ``ctx`` is the band's."""
+    ``ctx`` is the band's. ``key_cap`` selects the capped key buffers
+    (``ops/tiling.py``)."""
     dev = scene.xyz.device
     invalid, cam_pass, cfg_pass = scene.invalid, camera, rcfg
     if band is not None:
@@ -250,7 +333,7 @@ def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
     out, ctx, attrs_vjp = rasterize_fwd_ctx(
         xyz_in, feats_in, invalid, q, t, cam_pass, cfg_pass,
         sh_max_band=sh_band, point_object_id=scene.object_id,
-        with_pose_grads=refine)
+        with_pose_grads=refine, key_cap=key_cap)
     if band is not None:
         out = band.gather(out)
     pred = torch.clamp(out.rgb, 0.0, 1.0)
@@ -311,12 +394,14 @@ def apply_grads(state: TrainState, optimizers, d_xyz: torch.Tensor,
         pose_opt=pose_opt)
 
 
-def refuse_scan_steps(scan_steps: int) -> None:
-    if scan_steps > 0:
-        raise NotImplementedError(
-            "scan_steps: the JAX package's lax.scan windows only saved "
-            "remote-TPU dispatches; the port runs one step per call and "
-            "does not port them (ROADMAP.md)")
+# the refusals of windows the port does not run (the JAX trainer's message
+# for the band step; data-parallel windows are a later slice)
+TP_WINDOWS_REFUSAL = ("tile_parallel training runs one dispatch per step "
+                      "(steps_per_dispatch must be 1)")
+DP_WINDOWS_REFUSAL = (
+    "data-parallel windows (steps_per_dispatch > 1, scan_steps > 0) are not "
+    "ported yet: they are the next slice in ROADMAP.md (A11); train "
+    "data-parallel with steps_per_dispatch: 1")
 
 
 def train_rasterizer_config(config: TrainConfig) -> RasterizerConfig:
@@ -330,18 +415,44 @@ def train_rasterizer_config(config: TrainConfig) -> RasterizerConfig:
 
 def make_train_step(config: TrainConfig, height: int, width: int,
                     scan_steps: int = 0, device="cuda",
-                    split_bands: bool = False):
+                    split_bands: bool = False,
+                    key_cap: Optional[int] = None):
     """The step for one (height, width) image size, on ``device``:
     ``step(state, image_gt, q, t, K, sh_band, img_idx=-1) -> (new_state,
     metrics, aux)``, with the (H, W, 3) ground truth in uint8 or f32 and the
     camera pose (q, t) in the world frame. Under ``pose_refinement``,
-    ``img_idx`` (a host int) is the view's row of ``state.pose_deltas``;
-    -1 renders the pose as given (through a zero delta) and moves no row,
-    as during ``pose_refinement_warm_up``. ``split_bands`` makes the
+    ``img_idx`` (a host int or a () int64 device index) is the view's row
+    of ``state.pose_deltas``: the row is gathered on the device and its
+    update masked, so -1 (``pose_refinement_warm_up``) renders the pose as
+    given through a zero delta, computes the pose cotangent and moves no
+    row, as the JAX step does. ``split_bands`` makes the
     band-parallel step (``parallel.tile_parallel.make_tp_train_step``,
     which refuses pose refinement); ``step.collectives`` lists its last
-    call's collectives."""
-    refuse_scan_steps(scan_steps)
+    call's collectives.
+
+    ``key_cap``: None sizes the key buffers to each frame's exact total;
+    an int is the static key capacity (``ops/tiling.py``): no host sync,
+    ``metrics["num_keys"]`` the true total as a device scalar.
+
+    ``scan_steps`` k > 0 returns the JAX package's window instead:
+    ``windowed(state, images, qs, ts, Ks, sh_band, img_idxs=None) ->
+    (state, metrics, aux)`` runs k capped steps (``key_cap``, else
+    ``rasterisation_config.key_cap``) on images (k, H, W, 3), qs (k, 4), ts
+    (k, 3), Ks (k, 3, 3) and, under pose refinement, img_idxs (k,) (host
+    ints or a device tensor; None: all -1). ``metrics`` are stacked (k,),
+    ``aux`` is the last step's. On a card the k steps are one CUDA graph
+    (``_CapturedWindow``) for the (sh_band, pool capacity, image dtype,
+    pose rows) of the call; a call with another of these releases the
+    graph and captures a new one (``windowed.captures`` counts them). The
+    returned state and aux are the graph's static buffers, which the next
+    call of the window overwrites (a state returned by it may be passed
+    back as it is; any other state, or any leaf of it, is copied in). On
+    the CPU the steps run in a loop and the input state is left as it
+    was."""
+    if scan_steps > 0 and split_bands:
+        raise ValueError(TP_WINDOWS_REFUSAL)
+    if scan_steps > 0 and key_cap is None:
+        key_cap = config.rasterisation_config.key_cap
     pose_refine = config.pose_refinement
     rcfg = train_rasterizer_config(config)
     lcfg = config.loss_function_config
@@ -356,8 +467,7 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         )
         band_h, cfg_band = tp.band_layout(height, rcfg, mh.world_size())
 
-    def step(state: TrainState, image_gt, q, t, K, sh_band,
-             img_idx: int = -1):
+    def step(state: TrainState, image_gt, q, t, K, sh_band, img_idx=-1):
         scene = state.scene
         if scene.xyz.device.type != dev.type:
             raise ValueError(f"the step was made for {dev}, the state lies "
@@ -365,23 +475,26 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         if image_gt.dtype == torch.uint8:
             image_gt = image_gt.to(torch.float32) * (1.0 / 255.0)
         camera = Camera(K=K, width=width, height=height)
-        refine = pose_refine and img_idx >= 0
-        delta = None
-        if refine:
-            delta = state.pose_deltas[img_idx].detach()
+        delta = pose_idx = None
+        if pose_refine:
+            pose_idx = (img_idx.reshape(())
+                        if isinstance(img_idx, torch.Tensor)
+                        else torch.full((), img_idx, dtype=torch.int64,
+                                        device=dev))
+            row = state.pose_deltas.index_select(
+                0, torch.clamp_min(pose_idx, 0).reshape(1))[0]
+            delta = torch.where(pose_idx >= 0, row, torch.zeros_like(row))
             delta.requires_grad_(True)
-        elif pose_refine:
-            delta = torch.zeros(6, dtype=torch.float32, device=dev)
         band = None
         if split_bands:
             band = tp.BandSplit(scene, q, t, K, width, height, band_h,
                                 cfg_band, rcfg)
         cp = camera_pass(scene, image_gt, q, t, camera, rcfg, lcfg, gf,
-                         sh_band, delta, band)
+                         sh_band, delta, band, key_cap)
         pose, pose_aux = None, {}
-        if refine:
+        if pose_refine:
             with torch.no_grad():
-                pose = _pose_adam_row(state, img_idx, cp.d_delta,
+                pose = _pose_adam_row(state, pose_idx, cp.d_delta,
                                       config.pose_learning_rate)
             pose_aux = {"grad_q": cp.d_q, "grad_t": cp.d_t,
                         "grad_pose": cp.d_delta}
@@ -409,7 +522,117 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         return new_state, metrics, aux
 
     step.collectives = []
-    return step
+    if scan_steps <= 0:
+        return step
+    return _make_window(step, scan_steps, dev, pose_refine)
+
+
+def _tree_map(fn, *trees):
+    """fn over the tensors of states (NamedTuples and dicts, the first
+    tree's structure); None stays None."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, tuple):  # a NamedTuple
+        return type(t)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    return fn(*trees)
+
+
+def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a state leaf into its static buffer, unless it is that buffer
+    (a state the window returned comes back as it is)."""
+    if src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
+
+
+class _CapturedWindow:
+    """A window of k steps as one ``torch.cuda.CUDAGraph``, for one
+    (sh_band, pool capacity, image dtype, pose rows).
+
+    It keeps static buffers for the window's inputs and for the state.
+    One eager run of the steps on them comes first: it builds the kernels
+    and runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
+    host sync left in the step raises here rather than breaking the
+    capture. Then the steps are captured once, ending with copies of the
+    new state into the static state, so each replay moves that state on by
+    k steps in place. A failed capture raises; there is no eager
+    fallback."""
+
+    def __init__(self, run, state: TrainState, inputs: tuple, sh_band):
+        dev = state.scene.xyz.device
+        self.inputs = tuple(None if x is None else x.detach().clone()
+                            for x in inputs)
+        self.state = _tree_map(lambda x: x.detach().clone(), state)
+        torch.cuda.synchronize(dev)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(self.state, *self.inputs, sh_band)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            new_state, self.metrics, self.aux = run(
+                self.state, *self.inputs, sh_band)
+            _tree_map(_copy_in, self.state, new_state)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, state: TrainState, inputs: tuple):
+        for dst, src in zip(self.inputs, inputs):
+            if dst is not None:
+                dst.copy_(src)
+        _tree_map(_copy_in, self.state, state)
+        self.graph.replay()
+        # the metrics outlive the next replay (the trainer keeps losses)
+        return (self.state, {k: v.clone() for k, v in self.metrics.items()},
+                self.aux)
+
+
+def _make_window(step, k: int, dev: torch.device, pose_refine: bool):
+    """``make_train_step``'s window of k steps of ``step`` (a capped step)."""
+
+    def run(state, images, qs, ts, Ks, idxs, sh_band):
+        rows = []
+        aux = None
+        for i in range(k):
+            state, m, aux = step(state, images[i], qs[i], ts[i], Ks[i],
+                                 sh_band, -1 if idxs is None else idxs[i])
+            rows.append(m)
+        return state, {name: torch.stack([m[name] for m in rows])
+                       for name in rows[0]}, aux
+
+    def windowed(state: TrainState, images, qs, ts, Ks, sh_band,
+                 img_idxs=None):
+        if images.shape[0] != k:
+            raise ValueError(f"a window of {k} steps got {images.shape[0]} "
+                             "images")
+        idxs = None
+        if pose_refine:
+            idxs = (torch.full((k,), -1, dtype=torch.int64, device=dev)
+                    if img_idxs is None else torch.as_tensor(
+                        img_idxs, dtype=torch.int64, device=dev))
+        inputs = (images, qs, ts, Ks, idxs)
+        if dev.type != "cuda":
+            return run(state, *inputs, sh_band)
+        key = (int(sh_band), state.scene.capacity, images.dtype,
+               None if idxs is None else state.pose_deltas.shape[0])
+        graph = windowed.graphs.get(key)
+        if graph is None:
+            # one graph at a time: its pool, state and inputs go before
+            # the next is captured (the trainer's SH band only grows)
+            windowed.graphs.clear()
+            graph = windowed.graphs[key] = _CapturedWindow(
+                run, state, inputs, sh_band)
+            windowed.captures += 1
+        return graph(state, inputs)
+
+    windowed.graphs = {}
+    windowed.captures = 0
+    return windowed
 
 
 def make_densify_step(config: TrainConfig):
@@ -474,18 +697,33 @@ def _refuse_unported(config: TrainConfig) -> None:
     """Raise for the combinations the JAX trainer refuses (ValueError, its
     messages) and for the options the port does not port
     (NotImplementedError)."""
-    if config.tile_parallel_devices > 1 and (
-            config.data_parallel_devices > 1 or config.multihost
-            or config.pose_refinement):
-        raise ValueError(
-            "tile_parallel_devices composes with neither "
-            "data_parallel/multihost (pick one scaling axis) nor "
-            "pose_refinement")
-    if config.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1: the JAX package's lax.scan windows "
-            "only saved remote-TPU dispatches; the port runs one step per "
-            "call and does not port them (ROADMAP.md)")
+    if config.tile_parallel_devices > 1:
+        if (config.data_parallel_devices > 1 or config.multihost
+                or config.pose_refinement):
+            raise ValueError(
+                "tile_parallel_devices composes with neither "
+                "data_parallel/multihost (pick one scaling axis) nor "
+                "pose_refinement")
+        if config.steps_per_dispatch > 1:
+            raise ValueError(TP_WINDOWS_REFUSAL)
+    if config.steps_per_dispatch > 1 and (config.data_parallel_devices > 1
+                                          or config.multihost):
+        raise NotImplementedError(DP_WINDOWS_REFUSAL)
+
+
+def fit_key_cap(total_keys: int, minimum: int = 2 ** 15,
+                headroom: float = 1.3) -> int:
+    """The smallest capacity (m/8) 2^k (m in 8..15) at least
+    ``total_keys * headroom`` (and ``minimum``): eighth-octave buckets, so
+    a capacity overshoots its need by at most 12.5% and a doubling of the
+    scene changes it at most eight times (each change captures new
+    graphs). The JAX trainer's ``fit_key_cap``."""
+    need = max(int(total_keys * headroom) + 1, minimum)
+    base = minimum
+    while base * 2 <= need:
+        base *= 2
+    step = base // 8
+    return ((need + step - 1) // step) * step
 
 
 def _join_parallel_group(config: TrainConfig, device) -> Optional[str]:
@@ -571,6 +809,11 @@ class GaussianPointCloudTrainer:
                 config.rasterisation_config.tile_size)
         self.scene = self._load_scene()
         self.best_psnr_score = 0.0
+        # the windows' static key capacity (steps_per_dispatch > 1 only; the
+        # single steps of steps_per_dispatch 1 size their keys exactly),
+        # refit every 100 iterations from the live key total
+        self._capped = config.steps_per_dispatch > 1
+        self._key_cap = config.rasterisation_config.key_cap
         self._step_cache = {}
         self._eval_cache = {}
         self.densify_find, self.densify_apply, self.alpha_reset = (
@@ -602,11 +845,17 @@ class GaussianPointCloudTrainer:
     def _save_scene(self, scene: GaussianScene, path: str) -> None:
         scene_lib.to_parquet(scene, path)
 
-    # -- step caches (one per image size) --------------------------------------
+    # -- step caches (one per image size, key capacity and window) -----------
 
-    def _get_step(self, h: int, w: int):
-        key = (h, w)
+    def _get_step(self, h: int, w: int, scan_steps: int = 0):
+        """The step (``scan_steps`` 0) or the window of ``scan_steps`` steps
+        for one image size; capped at ``_key_cap`` under
+        ``steps_per_dispatch`` > 1 (cached by (h, w, key_cap, scan_steps)),
+        else sized exactly (cached by (h, w))."""
+        key_cap = self._key_cap if self._capped else None
+        key = (h, w) if key_cap is None else (h, w, key_cap, scan_steps)
         if key not in self._step_cache:
+            kw = {}
             if self.parallel == "tp":
                 from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (  # noqa: E501
                     make_tp_train_step,
@@ -623,9 +872,90 @@ class GaussianPointCloudTrainer:
                 make = make_dp_train_step
             else:
                 make = make_train_step
+                kw = dict(scan_steps=scan_steps, key_cap=key_cap)
             self._step_cache[key] = make(self.config, h, w,
-                                         device=self.device)
+                                         device=self.device, **kw)
         return self._step_cache[key]
+
+    # -- windows of steps (steps_per_dispatch) --------------------------------
+
+    def _boundary_after(self, k: int) -> bool:
+        """True if host work runs right after iteration k (densify, alpha
+        reset, ftgmm, image log, validation, the key-capacity refit), so k
+        may only end a window."""
+        config = self.config
+        ccfg = config.adaptive_controller_config
+        warm = k >= ccfg.num_iterations_warm_up
+        if warm and k % ccfg.num_iterations_densify == 0:
+            return True
+        if warm and k % ccfg.num_iterations_reset_alpha == 0:
+            return True
+        if k and k % 1234 == 0:  # ftgmm
+            return True
+        if config.log_image_interval and k % config.log_image_interval == 0:
+            return True
+        if (k % config.val_interval == 0 and k != 0) or k in (5000, 7000):
+            return True
+        # the refit runs at window ends only, so %100 must end one
+        return k % 100 == 0
+
+    def _boundary_before(self, k: int) -> bool:
+        """True if host work precedes iteration k (a downsample or SH-band
+        change: a window trains at one size and one band), so k may only
+        start a window."""
+        config = self.config
+        if k % config.half_downsample_factor_interval == 0 and k > 0:
+            return True
+        return k % config.increase_color_max_sh_band_interval == 0 and k > 0
+
+    def _window_size(self, iteration: int) -> int:
+        """Steps of the window starting at ``iteration``:
+        ``steps_per_dispatch`` when no boundary falls inside it, else 1."""
+        spd = max(self.config.steps_per_dispatch, 1)
+        if spd == 1 or iteration + spd > self.config.num_iterations:
+            return 1
+        for d in range(spd - 1):
+            if (self._boundary_after(iteration + d)
+                    or self._boundary_before(iteration + d + 1)):
+                return 1
+        return spd
+
+    def _window_tensors(self, items):
+        """(images (k, H, W, 3) uint8, qs, ts, Ks) of a window's items on
+        the trainer's device. The images are staged as uint8, as the JAX
+        trainer stages them: rint(image * 255) inverts the 8-bit decode
+        (after a downsample it requantizes)."""
+        images = np.rint(np.stack([it.image for it in items])
+                         * 255.0).astype(np.uint8)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return (put(images),
+                put(np.stack([it.q_pointcloud_camera for it in items]
+                             ).astype(np.float32)),
+                put(np.stack([it.t_pointcloud_camera for it in items]
+                             ).astype(np.float32)),
+                put(np.stack([it.camera_info.camera_intrinsics
+                              for it in items]).astype(np.float32)))
+
+    def _maybe_rebucket_key_cap(self, num_keys: int) -> bool:
+        """Grow the key capacity at once when the live total needs more
+        (``fit_key_cap``), halve it once the need falls to a quarter of it
+        (hysteresis); the steps of an old capacity leave the cache. Returns
+        True when it grew: the frame overflowed the old capacity."""
+        if num_keys <= 0:
+            return False
+        want = fit_key_cap(
+            num_keys,
+            minimum=min(2 ** 15, self.config.rasterisation_config.key_cap))
+        grow = want > self._key_cap
+        shrink = want * 4 <= self._key_cap
+        if grow or shrink:
+            self._key_cap = want if grow else self._key_cap // 2
+            self._step_cache = {k: v for k, v in self._step_cache.items()
+                                if k[2] == self._key_cap}
+            print(f"key_cap -> {self._key_cap} (live keys {num_keys})")
+        return grow
 
     def _get_eval(self, h: int, w: int):
         key = (h, w)
@@ -745,6 +1075,7 @@ class GaussianPointCloudTrainer:
             state, meta = load_checkpoint(config.resume_from, state)
             start_iteration = int(meta["iteration"]) + 1
             self.best_psnr_score = float(meta.get("best_psnr", 0.0))
+            self._key_cap = int(meta.get("key_cap", self._key_cap))
             # the live stream, not the seed: re-seeding would replay the
             # densify draws of iterations 0..k
             self.generator.set_state(
@@ -772,6 +1103,11 @@ class GaussianPointCloudTrainer:
                 if (iteration % config.half_downsample_factor_interval == 0
                         and iteration > 0 and downsample_factor > 1):
                     downsample_factor //= 2
+                    # the factor only falls: the windows of the old sizes
+                    # cannot recur, and their graphs go
+                    self._step_cache = {
+                        k: v for k, v in self._step_cache.items()
+                        if len(k) < 4 or k[3] == 0}
                 sh_band = iteration // config.increase_color_max_sh_band_interval
                 # -1 holds the pose still during the pose warm-up
                 warm_pose = iteration >= config.pose_refinement_warm_up
@@ -796,14 +1132,35 @@ class GaussianPointCloudTrainer:
 
                     aux = frame_stats_aux(frame_stats)
                 else:
-                    item = next(data_iter)
+                    window = self._window_size(iteration)
+                    items = [next(data_iter) for _ in range(window)]
                     if downsample_factor > 1:
-                        item = downsample_item(item, downsample_factor, tile)
+                        items = [downsample_item(it, downsample_factor, tile)
+                                 for it in items]
+                    item = items[-1]
                     h = item.camera_info.camera_height
                     w = item.camera_info.camera_width
-                    pose_idx = item.index if warm_pose else -1
-                    state, metrics, aux = self._get_step(h, w)(
-                        state, *self._item_tensors(item), sh_band, pose_idx)
+                    if any((it.camera_info.camera_height,
+                            it.camera_info.camera_width) != (h, w)
+                           for it in items):
+                        # mixed resolutions: a window of one, the newest
+                        # item (the JAX trainer's fallback)
+                        window = 1
+                    if window > 1:
+                        idxs = [it.index if iteration + d
+                                >= config.pose_refinement_warm_up else -1
+                                for d, it in enumerate(items)]
+                        state, stacked, aux = self._get_step(h, w, window)(
+                            state, *self._window_tensors(items), sh_band,
+                            idxs)
+                        metrics = self._emit_window_metrics(
+                            stacked, iteration, window, recent_losses)
+                        iteration += window - 1
+                    else:
+                        pose_idx = item.index if warm_pose else -1
+                        state, metrics, aux = self._get_step(h, w)(
+                            state, *self._item_tensors(item), sh_band,
+                            pose_idx)
 
                 # densify cadence, on the post-optimizer-step scene
                 warm = iteration >= ccfg.num_iterations_warm_up
@@ -842,6 +1199,9 @@ class GaussianPointCloudTrainer:
 
                 # metrics stay on the device and are read at log cadence
                 recent_losses.append(metrics["loss"])
+                if self._capped and iteration % 100 == 0:
+                    # the last step's true key total (a window end)
+                    self._maybe_rebucket_key_cap(int(metrics["num_keys"]))
                 self._log_step(state, metrics, aux, iteration, t_start)
                 self._profile_window(iteration)
 
@@ -882,6 +1242,35 @@ class GaussianPointCloudTrainer:
             self.writer.flush()
         self.scene = state.scene
         return state
+
+    def _emit_window_metrics(self, stacked: dict, iteration: int,
+                             window: int, recent_losses) -> dict:
+        """Log a window's interior steps from its stacked metrics (the
+        scalars and the ``key=value;`` console lines of every log point, as
+        a window of one would) and return the last step's row."""
+        config = self.config
+        for d in range(window - 1):
+            k = iteration + d
+            row = {key: v[d] for key, v in stacked.items()}
+            recent_losses.append(row["loss"])
+            if k % config.log_loss_interval == 0:
+                loss_val = float(row["loss"])
+                l1 = float(row["l1"])
+                ssim_loss = 1.0 - float(row["ssim"])
+                self._scalar("train/loss", loss_val, k)
+                self._scalar("train/l1 loss", l1, k)
+                self._scalar("train/ssim loss", ssim_loss, k)
+                self._console(train_iteration=k, train_loss=loss_val,
+                              train_l1_loss=l1, train_ssim_loss=ssim_loss)
+            if k % config.log_metrics_interval == 0:
+                p = float(row["psnr"])
+                s = float(row["ssim"])
+                self._scalar("train/psnr", p, k)
+                self._scalar("train/ssim", s, k)
+                self._console(train_psnr=p, train_ssim=s,
+                              **{f"train_psnr_{k}": p,
+                                 f"train_ssim_{k}": s})
+        return {key: v[-1] for key, v in stacked.items()}
 
     def _log_step(self, state, metrics, aux, iteration: int,
                   t_start: float) -> None:
@@ -1152,6 +1541,7 @@ class GaussianPointCloudTrainer:
                 os.path.join(self.output_model_dir, "checkpoint_latest"),
                 state,
                 {"iteration": iteration, "best_psnr": self.best_psnr_score,
+                 "key_cap": self._key_cap,
                  "rng_state": self.generator.get_state().tolist()})
         if mean_psnr > self.best_psnr_score:
             self.best_psnr_score = mean_psnr

@@ -35,9 +35,19 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
-from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+from taichi_3d_gaussian_splatting_tpu_torch.training import (
+    checkpoint,
+    controller,
+    trainer,
+)
 from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
-from tests.torch_port_scenes import Q_ID, T_ID, make_K, make_scene
+from tests.torch_port_scenes import (
+    Q_ID,
+    T_ID,
+    host_scalar_adam,
+    make_K,
+    make_scene,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -331,3 +341,148 @@ def test_train_step_launches_every_kernel(dev):
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
     assert not torch.equal(new.scene.features, state.scene.features)
+
+
+@pytest.mark.parametrize("exact_cull", [False, True])
+@pytest.mark.parametrize("cap_of_total", [2.0, 1.0, 0.5, 0.05])
+def test_capped_slot_keys_matches_plain(dev, exact_cull, cap_of_total):
+    """K1a in its capped mode (the key total read from the device): equal
+    to its capped plain version, with the capacity above, at and below the
+    key total; its live slots are the exact mode's, the rest padding."""
+    cfg, cam, raw, radius, invalid, _ = _frame(dev, n=2000, scale_shift=1.0)
+    args, kw = _expand_inputs(cfg, cam, raw, radius, invalid,
+                              nonfinite=True)
+    total = kw["total"]
+    cap = max(int(total * cap_of_total), 1)
+    capped = dict(kw, total=cap, exact_cull=exact_cull)
+    key_total = torch.tensor(total, dtype=torch.int64, device=dev)
+    before = expand.slot_keys.launches
+    fused, owner = expand.slot_keys(*args, **capped, key_total=key_total)
+    assert expand.slot_keys.launches == before + 1
+    fused_p, owner_p = expand.slot_keys_plain(*args, **capped,
+                                              key_total=key_total)
+    torch.testing.assert_close(fused, fused_p, rtol=0, atol=0)
+    torch.testing.assert_close(owner, owner_p, rtol=0, atol=0)
+    exact, exact_owner = expand.slot_keys(*args, **kw, exact_cull=exact_cull)
+    live = min(total, cap)
+    torch.testing.assert_close(fused[:live], exact[:live], rtol=0, atol=0)
+    torch.testing.assert_close(owner[:live], exact_owner[:live], rtol=0,
+                               atol=0)
+    assert bool((fused[live:] == kw["sentinel"]).all())
+    assert bool((owner[live:] == 0).all())
+
+
+def test_window_graph_equals_eager_steps(dev):
+    """make_train_step(scan_steps=3) on the card: one CUDA graph a window,
+    replayed from a given state, ends in the state and losses of three
+    eager exact steps, bit for bit; the replayed state is passed back
+    as it is, a replaced one is copied in."""
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    rng = np.random.default_rng(1)
+    gts = torch.from_numpy((rng.random((3, 64, 64, 3)) * 255).astype(
+        np.uint8)).to(dev)
+    qs = torch.from_numpy(np.tile(Q_ID, (3, 1))).to(dev)
+    ts = torch.from_numpy(rng.normal(0, 0.02, (3, 3)).astype(
+        np.float32)).to(dev)
+    Ks = torch.from_numpy(np.tile(make_K(), (3, 1, 1))).to(dev)
+    step = trainer.make_train_step(config, 64, 64, device=dev)
+    eager, losses = state, []
+    for i in range(3):
+        eager, m, _ = step(eager, gts[i], qs[i], ts[i], Ks[i], 3)
+        losses.append(m["loss"])
+    window = trainer.make_train_step(config, 64, 64, scan_steps=3,
+                                     device=dev, key_cap=4096)
+    window(state, gts, qs, ts, Ks, 3)  # warm-up and capture, then a replay
+    assert len(window.graphs) == 1
+    got, metrics, _ = window(state, gts, qs, ts, Ks, 3)
+    torch.testing.assert_close(metrics["loss"], torch.stack(losses),
+                               rtol=0, atol=0)
+    for x, y in zip(checkpoint.state_leaves(got),
+                    checkpoint.state_leaves(eager)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    again, _, _ = window(got, gts, qs, ts, Ks, 3)  # the static state itself
+    assert again.scene.features.data_ptr() == got.scene.features.data_ptr()
+    assert int(again.feat_opt.count) == 6
+
+
+def _window_inputs(dev, k=3):
+    rng = np.random.default_rng(1)
+    gts = torch.from_numpy((rng.random((k, 64, 64, 3)) * 255).astype(
+        np.uint8)).to(dev)
+    qs = torch.from_numpy(np.tile(Q_ID, (k, 1))).to(dev)
+    ts = torch.from_numpy(rng.normal(0, 0.02, (k, 3)).astype(
+        np.float32)).to(dev)
+    Ks = torch.from_numpy(np.tile(make_K(), (k, 1, 1))).to(dev)
+    return gts, qs, ts, Ks
+
+
+def test_window_replays_its_graph_after_a_new_scene_and_a_new_band(dev):
+    """The window holds one graph. After a densify-like change (a new scene
+    and controller, the optimizer states the graph's own) it replays that
+    graph; a call at another SH band releases it and captures anew, and
+    the next call replays. Every call ends where three eager capped steps
+    from the same state end, bit for bit."""
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    inputs = _window_inputs(dev)
+    capped = trainer.make_train_step(config, 64, 64, device=dev,
+                                     key_cap=4096)
+    window = trainer.make_train_step(config, 64, 64, scan_steps=3,
+                                     device=dev, key_cap=4096)
+
+    def eager(s, band):
+        for i in range(3):
+            s = capped(s, *(x[i] for x in inputs), band)[0]
+        return s
+
+    got = window(state, *inputs, 2)[0]
+    changed = got._replace(
+        scene=got.scene._replace(features=got.scene.features * 0.5 + 0.01),
+        ctrl=controller.init_state(got.scene.capacity, device=dev))
+    calls = [(changed, 2, 1), (None, 3, 2), (None, 3, 2)]
+    for before, band, captures in calls:
+        before = got if before is None else before
+        want = eager(before, band)  # new tensors: the replay overwrites got
+        got = window(before, *inputs, band)[0]
+        assert (window.captures, len(window.graphs)) == (captures, 1)
+        for x, y in zip(checkpoint.state_leaves(got),
+                        checkpoint.state_leaves(want)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which", [0, 1])  # features, positions
+def test_adam_on_the_card_equals_the_host_scalar_update(dev, which):
+    """On the card, Adam's update with its count on the device equals, bit
+    for bit, the update with host-float bias corrections and rate (which
+    PyTorch applies on the card as a multiply by the f32 reciprocal), over
+    counts 1-300 and 17,300-17,340, the rate decaying every 3 updates."""
+    config = TrainConfig(feature_learning_rate=1e-2,
+                         position_learning_rate=1e-3,
+                         position_learning_rate_decay_interval=3)
+    tx = trainer.make_optimizers(config)[which]
+    rng = np.random.default_rng(which)
+    param = torch.from_numpy(rng.normal(size=(64, 3)).astype(
+        np.float32)).to(dev)
+    for start in (0, 17299):
+        state = tx.init(param)._replace(
+            count=torch.tensor(start, dtype=torch.int64, device=dev))
+        for _ in range(300 if start == 0 else 41):
+            grad = torch.from_numpy((rng.normal(size=(64, 3))
+                                     * 10.0 ** rng.integers(-3, 3)).astype(
+                                         np.float32)).to(dev)
+            want, mu, nu = host_scalar_adam(tx, grad, state, param)
+            param, state = tx.update(grad, state, param)
+            assert torch.equal(param, want), int(state.count)
+            assert torch.equal(state.mu, mu) and torch.equal(state.nu, nu)
+    # why the update divides through trainer._over: on the card a true
+    # division by the device scalar rounds otherwise than the division by
+    # the host float
+    x = torch.from_numpy(rng.random(4096).astype(np.float32) + 0.5).to(dev)
+    d = float(np.float32(1.0) - np.float32(0.999) ** np.float32(7))
+    assert torch.equal(x / d, trainer._over(x, torch.tensor(d, device=dev)))
+    assert not torch.equal(x / d, x / torch.tensor(d, device=dev))

@@ -22,6 +22,7 @@ from taichi_3d_gaussian_splatting_tpu.training import trainer as jtr  # noqa: E4
 from taichi_3d_gaussian_splatting_tpu_torch.training import config as tcfg  # noqa: E402
 from taichi_3d_gaussian_splatting_tpu_torch.training import controller as tc  # noqa: E402
 from taichi_3d_gaussian_splatting_tpu_torch.training import trainer as ttr  # noqa: E402
+from tests.torch_port_scenes import host_scalar_adam  # noqa: E402
 
 
 @pytest.mark.parametrize("which", [0, 1])  # features, positions
@@ -51,15 +52,51 @@ def test_adam_matches_optax(which):
 
 
 def test_position_lr_matches_optax_schedule():
+    """The rate the step takes (``lr`` of its () int64 count) against
+    optax's schedule, and equal to the f32 value of the Python double
+    ``lr0 * rate ** (count // interval)``."""
     config = tcfg.TrainConfig()
     schedule = optax.exponential_decay(
         init_value=config.position_learning_rate, transition_steps=100,
         decay_rate=0.97, staircase=True)
     _, pos = ttr.make_optimizers(config)
+
+    def lr(count):
+        return pos.lr(torch.tensor(count, dtype=torch.int64))
     for count in (0, 99, 100, 250):
-        np.testing.assert_allclose(pos.lr(count), float(schedule(count)),
+        np.testing.assert_allclose(float(lr(count)), float(schedule(count)),
                                    rtol=1e-6)
-    assert pos.lr(99) == pos.lr(0) > pos.lr(100) > pos.lr(250)
+    assert lr(99) == lr(0) > lr(100) > lr(250)
+    for n in range(400):
+        count = n * 100 + n % 100
+        assert lr(count).dtype == torch.float32
+        assert float(lr(count)) == float(np.float32(
+            config.position_learning_rate * 0.97 ** n)), count
+
+
+@pytest.mark.parametrize("which", [0, 1])  # features, positions
+def test_adam_update_equals_the_host_scalar_update(which):
+    """Adam's update with its count on the device (bias corrections read
+    from ``_bias_table``, the rate cast from f64) equals, bit for bit, the
+    update with host floats over counts 1-400 and 17,300-17,340 (where
+    0.999's correction reaches 1.0), with the position rate decaying every
+    3 updates."""
+    config = dict(feature_learning_rate=1e-2, position_learning_rate=1e-3,
+                  position_learning_rate_decay_interval=3)
+    tx = ttr.make_optimizers(tcfg.TrainConfig(**config))[which]
+    rng = np.random.default_rng(which)
+    param = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+    for start in (0, 17299):
+        state = tx.init(param)._replace(
+            count=torch.tensor(start, dtype=torch.int64))
+        for _ in range(400 if start == 0 else 41):
+            grad = torch.from_numpy((rng.normal(size=(64, 3))
+                                     * 10.0 ** rng.integers(-3, 3)).astype(
+                                         np.float32))
+            want, mu, nu = host_scalar_adam(tx, grad, state, param)
+            param, state = tx.update(grad, state, param)
+            assert torch.equal(param, want), int(state.count)
+            assert torch.equal(state.mu, mu) and torch.equal(state.nu, nu)
 
 
 def test_accumulate_matches_jax():

@@ -147,7 +147,9 @@ def test_warm_up_leaves_the_poses_at_zero(runs):
         ts, _, ta = runs["t"][i]
         assert float(ts.pose_deltas.abs().max()) == 0.0
         assert float(ts.pose_opt["count"].abs().max()) == 0.0
-        assert "grad_pose" not in ta
+        # the pose cotangent is computed, as the JAX step computes it, and
+        # the masked update moves no row
+        assert "grad_pose" in ta
         assert np.abs(runs["j"][i][0]["pose_deltas"]).max() == 0.0
     # each refining step moves its own view's row alone
     before = runs["t"][WARM - 1][0].pose_deltas

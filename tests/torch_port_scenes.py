@@ -88,3 +88,19 @@ def synthetic_target(hw=32):
 
 
 K32 = np.asarray([[24.0, 0, 16.0], [0, 24.0, 16.0], [0, 0, 1.0]], np.float32)
+
+
+def host_scalar_adam(tx, grad, state, param):
+    """``tx.update`` (the port's Adam) with its bias corrections numpy's f32
+    scalars and its learning rate a Python double, all host floats:
+    (new param, mu, nu)."""
+    count = int(state.count) + 1
+    mu = (1.0 - tx.b1) * grad + tx.b1 * state.mu
+    nu = (1.0 - tx.b2) * (grad * grad) + tx.b2 * state.nu
+    bc1 = float(np.float32(1.0) - np.float32(tx.b1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(tx.b2) ** np.float32(count))
+    lr = tx.lr0
+    if tx.decay_interval:
+        lr = tx.lr0 * tx.decay_rate ** ((count - 1) // tx.decay_interval)
+    u = (mu / bc1) / ((nu / bc2).sqrt() + tx.eps)
+    return param + (-lr) * u, mu, nu
