@@ -145,10 +145,32 @@ yardstick of their redesign), then:
    round and after an SH-band change (which releases the band's graph and
    captures the next), then change size: the graphs held, and the memory
    held before and after each window, which must not grow by a graph
-   across the band change, and the peak.
+   across the band change, and the peak;
+15. trains in windows of data-parallel steps through
+   ``parallel/data_parallel.py``'s make_dp_train_step(scan_steps), in the
+   rank processes of phases 10-12 after their own work (a process costs
+   seconds to reach the card), checked after phase 14: (a) the group of
+   one over NCCL, the phase-4
+   scene and start state over phase 14's 8 views (f32 targets, one row a
+   step) at phase 14a's fitted capacity: one CUDA graph a window holding
+   its collectives, its state and 8 losses bit for bit those of phase
+   14a's single-device window and of 8 eager capped data-parallel steps,
+   replayed twice; ms a step over warm replays, busy share, capture time,
+   pool memory, every kernel's launches and NCCL's kernels from the
+   profiler's trace of replays, and phase 10a's eager step timed beside
+   it; (b) two gloo ranks sharing the card, a window of 4 steps on views
+   (2s, 2s + 1) of ``poses(8)``: eager (gloo copies through the host, which
+   no graph can hold), a second window timed warm, the ranks
+   bit-identical, losses at rtol 1e-5 and
+   the state within the gradient gate of 4 steps of the group-of-one step
+   on both rows, every kernel once a step on each rank; (c) phase 14d's
+   loop with ``multihost`` in the group of one over NCCL (windows,
+   captures, one graph held, the refit, ms an iteration, the resume), and
+   a 20-iteration cut of it with ``data_parallel_devices: 2`` on the two
+   gloo ranks, whose final states are bit-identical.
 
 Each path's launch counts are set to 0 just before it and read just after
-(in phases 10-13 by each rank, in its own process).
+(in phases 10-13 and 15 by each rank, in its own process).
 In phases 1 and 1b a float64 sequential front-to-back blend of every
 tile's sorted keys (``f64_counts``) gives each pixel's and each key's
 count; ``count_check`` in the record says on how many the kernel (K3's
@@ -917,11 +939,11 @@ def check_backward_kernels(frame: Frame, label: str, full_width: bool,
 
 # --- phase 4: training --------------------------------------------------------
 
-def train_setup(xyz, feats, camera, cfg_kw):
+def train_setup(xyz, feats, camera, cfg_kw, device="cuda"):
     """bench.py's train step at full width: the step, a fresh state of the
     scene (numpy arrays through convert.train_state_from_jax) and its
     uint8 target, rendered from the scene with seeded noise (sigma 0.3) on
-    the DC colour features (columns 8, 24, 40)."""
+    the DC colour features (columns 8, 24, 40); on ``device``."""
     from taichi_3d_gaussian_splatting_tpu_torch.convert import (
         train_state_from_jax,
     )
@@ -944,7 +966,7 @@ def train_setup(xyz, feats, camera, cfg_kw):
             "grad_viewspace": zeros(n), "grad_viewspace_avg": zeros(n),
             "grad_position": zeros(n, 3), "grad_position_norm": zeros(n)}
     state = train_state_from_jax(scene, adam(feats), adam(xyz), ctrl,
-                                 device="cuda")
+                                 device=device)
     rng = np.random.default_rng(11)
     feats_gt = feats.copy()
     feats_gt[:, [8, 24, 40]] += rng.normal(0.0, 0.3, (n, 3)).astype(
@@ -957,7 +979,7 @@ def train_setup(xyz, feats, camera, cfg_kw):
                          R.RasterizerConfig(rgb_only=True, **cfg_kw)).rgb
     gt = torch.round(torch.clamp(target, 0.0, 1.0) * 255).to(torch.uint8)
     step = trainer.make_train_step(config, camera.height, camera.width,
-                                   device="cuda")
+                                   device=device)
     return config, step, state, (gt, q, t, camera.K, 3)
 
 
@@ -1133,10 +1155,14 @@ LOOP_SIZES = {(HEIGHT // 2 - (HEIGHT // 2) % TILE, WIDTH // 2): "480x256",
 
 
 class MemoryViews:
-    """ImagePoseDataset's interface over DatasetItems held in memory."""
+    """ImagePoseDataset's interface over DatasetItems held in memory
+    (``records``: the metadata a data-parallel trainer decides sizes by)."""
 
     def __init__(self, items):
         self.items = items
+        self.records = [{"camera_height": it.camera_info.camera_height,
+                         "camera_width": it.camera_info.camera_width}
+                        for it in items]
 
     def __len__(self):
         return len(self.items)
@@ -2061,16 +2087,19 @@ def rank_setup(height=HEIGHT, width=WIDTH):
     return dev, feats, camera, config, step, state, inputs
 
 
-def dp_one_rank() -> dict:
+def dp_one_rank(loop_ms) -> dict:
     """Phase 10a (a group of one, NCCL): one data-parallel step and one
-    single-device step from the same state and view."""
+    single-device step from the same state and view; then, in the same
+    group, phase 15 (a) and the NCCL loop of (c) (``dp_window_nccl``;
+    ``loop_ms``: phase 5's ms an iteration)."""
     import torch.distributed as dist
 
     from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
         make_dp_train_step,
     )
 
-    dev, _, _, config, step, state, inputs = rank_setup()
+    setup = rank_setup()
+    dev, _, _, config, step, state, inputs = setup
     gt, q, t, K, band = inputs
     dp = make_dp_train_step(config, HEIGHT, WIDTH, device=dev)
     single, m1, _ = step(state, *inputs)
@@ -2081,11 +2110,14 @@ def dp_one_rank() -> dict:
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     a, b = state_leaves(single), state_leaves(new)
-    return {"backend": dist.get_backend(),
-            "unequal_leaves": [k for k in a if not torch.equal(a[k], b[k])],
-            "losses": [float(m1["loss"]), float(m2["loss"])],
-            "launches": launches,
-            "collectives": [(c.op, c.numel) for c in dp.collectives]}
+    out = {"backend": dist.get_backend(),
+           "unequal_leaves": [k for k in a if not torch.equal(a[k], b[k])],
+           "losses": [float(m1["loss"]), float(m2["loss"])],
+           "launches": launches,
+           "collectives": [(c.op, c.numel) for c in dp.collectives]}
+    del a, b, single, new, dp
+    out["15"] = dp_window_nccl(setup, loop_ms)
+    return out
 
 
 def _collectives_ms(collectives, dev, reps=10) -> float:
@@ -2126,9 +2158,11 @@ def _timed_steps(fn, warm: int, timed: int, kernels) -> tuple:
             {k: v / timed for k, v in read_launches(kernels).items()})
 
 
-def two_ranks(ply: str) -> dict:
-    """Phases 10b, 10c, 11 and 12 on this rank of two (gloo, one card);
-    ``ply``: the phase-4 scene as a .ply file, for the renderer."""
+def two_ranks(ply: str, cap: int, ref_path: str) -> dict:
+    """Phases 10b, 10c, 11 and 12 on this rank of two (gloo, one card),
+    then phase 15 (b) and the gloo loop of (c) (``dp_window_gloo``);
+    ``ply``: the phase-4 scene as a .ply file, for the renderer; ``cap``
+    and ``ref_path``: phase 15 (b)'s capacity and reference."""
     import torch.distributed as dist
 
     from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
@@ -2141,7 +2175,8 @@ def two_ranks(ply: str) -> dict:
     rank = mh.rank()
     out = {"backend": dist.get_backend(), "rank": rank}
     kernels = rank_kernels()
-    dev, feats, camera, config, step, state0, inputs = rank_setup()
+    setup = rank_setup()
+    dev, feats, camera, config, step, state0, inputs = setup
     gt, q, t, K, band = inputs
     dp = make_dp_train_step(config, HEIGHT, WIDTH, device=dev)
 
@@ -2178,11 +2213,13 @@ def two_ranks(ply: str) -> dict:
                   "collectives_ms": coll_ms, "allreduce_share": coll_ms / ms,
                   "digest": state_digest(cur["s"]),
                   "loss": float(dp_step()["loss"])}
-    del cur, state0, dp
+    del cur, dp
     torch.cuda.empty_cache()
     out["11"] = tp_phase(kernels)
     torch.cuda.empty_cache()
     out["12"] = render_phase(ply)
+    torch.cuda.empty_cache()
+    out["15"] = dp_window_gloo(setup, cap, ref_path)
     return out
 
 
@@ -2304,9 +2341,13 @@ def mh_rank() -> dict:
     return res
 
 
-def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
+def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase,
+                   loop_ms) -> dict:
     """Phases 10-13 (rank functions above), checked against their gates;
-    ``frames``: phase 2's uint8 frames of ``poses(9)``."""
+    ``frames``: phase 2's uint8 frames of ``poses(9)``; ``loop_ms``: phase
+    5's ms an iteration. The same spawned ranks then run phase 15's work
+    (each process costs seconds to reach the card); its record is
+    ``out["dp_windows"]``, checked by ``check_dp_windows``."""
     from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
     from taichi_3d_gaussian_splatting_tpu_torch.parallel import mh_smoke
     from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
@@ -2316,8 +2357,9 @@ def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
     out = {}
     phase("phase 10: data-parallel train steps at full width")
     t0 = time.perf_counter()
-    (one,) = mh.run_local_ranks(dp_one_rank, 1, device="cuda",
-                                timeout_s=600)
+    (one,) = mh.run_local_ranks(dp_one_rank, 1, args=(loop_ms,),
+                                device="cuda", timeout_s=600)
+    windows = {"nccl": one.pop("15")}
     print(f"  10a (1 rank, {one['backend']}): losses {one['losses']}, "
           f"leaves unequal to the single-device step {one['unequal_leaves']}"
           f", launches {one['launches']}, collectives {one['collectives']} "
@@ -2333,10 +2375,17 @@ def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
     scene_lib.to_ply(scene_lib.create_scene(xyz, scene_lib.SceneConfig(),
                                             features=feats, device="cpu"),
                      ply)
+    ref_path = str(tmp / "ref15b.pt")
+    cap = dp_window_reference(xyz, feats, ref_path)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = mh.run_local_ranks(two_ranks, 2, args=(ply,), device="cuda",
-                               timeout_s=900)
+    ranks = mh.run_local_ranks(two_ranks, 2, args=(ply, cap, ref_path),
+                               device="cuda", timeout_s=900)
     secs = time.perf_counter() - t0
+    windows["gloo"] = [r.pop("15") for r in ranks]
+    windows["gloo_cap"] = cap
+    out["dp_windows"] = windows
     if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
         raise AssertionError("two ranks on one card must run over gloo")
     b = [r["10b"] for r in ranks]
@@ -2399,7 +2448,7 @@ def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase) -> dict:
           f"{len(tp_frames)} frames on rank 0 ({r12[0]['padded_height']} rows"
           f" rendered), float max |d| {fl}; launches "
           f"{[r['tile_parallel']['launches'] for r in r12]} "
-          f"[{secs:.1f} s for phases 10b-12]", flush=True)
+          f"[{secs:.1f} s for phases 10b-12 and 15b]", flush=True)
     if bad:
         raise AssertionError(f"12: data-parallel frames {bad} differ")
     if (sorted(tp_frames) != sorted(frames) or r12[1]["tile_parallel"][
@@ -2486,10 +2535,13 @@ def window_profile(run, reps: int) -> tuple:
     for ev, us, _ in calls:
         by_name[ev[:90]] = by_name.get(ev[:90], 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda r: -r[1])[:8]
+    # the collectives' device events (NCCL's kernels), launches a call
+    nccl = {ev[:90]: k for ev, _, k in calls if "nccl" in ev.lower()}
     return {"window_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "kernel_ms_under_replay": kernel_ms_,
-            "top_kernels_ms_per_window": dict(top)}, launches
+            "top_kernels_ms_per_window": dict(top),
+            "nccl_launches_per_window": nccl}, launches
 
 
 def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
@@ -2664,19 +2716,21 @@ def record_windows(trainer, memory: bool = False) -> list:
     return rows
 
 
-def run_window_loop(xyz, feats, K_np, loop_ms, dev="cuda") -> dict:
+def run_window_loop(xyz, feats, K_np, loop_ms, dev="cuda",
+                    label="(d)", **over) -> dict:
     """Phase 14 (d): phase 5's loop with steps_per_dispatch WINDOW: its
     windows, the graphs they capture and hold, its key-capacity refits, ms
     an iteration over the whole train() window, then a resume from
-    checkpoint_latest."""
+    checkpoint_latest. ``over``: more config fields (phase 15 (c):
+    ``multihost``)."""
     from taichi_3d_gaussian_splatting_tpu_torch.training import checkpoint
 
     views = loop_views(K_np, dev)
     saved_as = []
     Trainer = loop_trainer_class(views[:6], views[6:], xyz, feats, saved_as)
     log_dir = tempfile.TemporaryDirectory()
-    trainer = Trainer(loop_config(log_dir.name, steps_per_dispatch=WINDOW),
-                      device=dev)
+    trainer = Trainer(loop_config(log_dir.name, steps_per_dispatch=WINDOW,
+                                  **over), device=dev)
     refits, saves = [], {}
     rebucket = trainer._maybe_rebucket_key_cap
     windows = record_windows(trainer)
@@ -2709,13 +2763,13 @@ def run_window_loop(xyz, feats, K_np, loop_ms, dev="cuda") -> dict:
     resumed = Trainer(loop_config(
         log_dir.name + "/resumed", steps_per_dispatch=WINDOW,
         num_iterations=saved_it + 1,
-        resume_from=str(Path(log_dir.name) / "checkpoint_latest")),
+        resume_from=str(Path(log_dir.name) / "checkpoint_latest"), **over),
         device=dev)
     restored = resumed.train()
     same = all(torch.equal(a, b) for a, b in zip(
         checkpoint.state_leaves(restored), saves["leaves"]))
     same_cap = resumed._key_cap == saves["meta"]["key_cap"]
-    print(f"  (d) {LOOP_ITERS} iterations with steps_per_dispatch {WINDOW}: "
+    print(f"  {label} {LOOP_ITERS} iterations with steps_per_dispatch {WINDOW}: "
           f"{loop_w_ms:.2f} ms an iteration over the whole train() window "
           f"(phase 5: {loop_ms} ms); windows {windows}; refits {refits}; "
           f"resumed at {saved_it + 1}: leaves equal {same}, key_cap "
@@ -2812,6 +2866,337 @@ def run_window_reuse(xyz, feats, K_np, dev="cuda") -> dict:
             "window_reuse_peak_reserved_gib": peak_reserved,
             "window_reuse_peak_allocated_gib": peak_allocated,
             "window_reuse_loop_ms": loop_ms}
+
+
+# --- phase 15: data-parallel windows ------------------------------------------
+
+DP_WINDOW_B = 4          # steps of phase 15 (b)'s window on two gloo ranks
+GLOO_LOOP_ITERS = 20     # phase 15 (c)'s loop on two gloo ranks
+
+
+def full_K_np() -> np.ndarray:
+    return np.asarray([[580.0, 0.0, WIDTH / 2], [0.0, 580.0, HEIGHT / 2],
+                       [0.0, 0.0, 1.0]], np.float32)
+
+
+def window_rows(views, rows) -> list:
+    """(images f32, qs, ts, Ks), each (steps, len(row), ...): step s takes
+    the views ``rows[s]``; the targets widened to f32 as the step widens
+    uint8 (the trainer stages a data-parallel dispatch's targets as f32)."""
+    def take(i):
+        return torch.stack([torch.stack([views[v][i] for v in row])
+                            for row in rows])
+    return [take(0).to(torch.float32) * (1.0 / 255.0), take(1), take(2),
+            take(3)]
+
+
+def eager_key_cap(step, start, views, band) -> int:
+    """Phase 14a's capacity: ``fit_key_cap`` of the largest key total over
+    WINDOW eager exact steps from ``start``, one on each of ``views``."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+
+    state, totals = start, []
+    for gt, q, t, K in views[:WINDOW]:
+        state, m, _ = step(state, gt, q, t, K, band)
+        totals.append(m["num_keys"])
+    return trainer.fit_key_cap(max(totals))
+
+
+def dp_window_nccl(setup, loop_ms) -> dict:
+    """Phase 15 (a) and the loop of (c), in a group of one over NCCL
+    (``setup``: ``rank_setup()``'s): the data-parallel window of WINDOW
+    steps (one row a step) at phase 14a's capacity against phase 14a's
+    single-device window and WINDOW eager capped data-parallel steps from
+    the same state on the same f32 targets, its replays timed and traced;
+    phase 10a's eager step timed; then phase 14d's loop with
+    ``multihost`` (this process is the group's one rank)."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.training import (
+        checkpoint,
+        trainer,
+    )
+
+    t0 = time.perf_counter()
+    dev, feats, camera, config, step, start, inputs = setup
+    band = inputs[4]
+    views = view_targets(start, feats, camera, list(range(WINDOW)),
+                         {"tile_size": TILE})
+    cap = eager_key_cap(step, start, views, band)
+    rows = window_rows(views, [[i] for i in range(WINDOW)])
+    # phase 14a's single-device window, on the same f32 targets
+    single = trainer.make_train_step(config, HEIGHT, WIDTH,
+                                     scan_steps=WINDOW, device=dev,
+                                     key_cap=cap)
+    s1, m1, _ = single(start, *(x[:, 0] for x in rows), band)
+    ref = [t.clone() for t in checkpoint.state_leaves(s1)]
+    ref_losses = m1["loss"].clone()
+    del single, s1, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def same(state, losses) -> bool:
+        return (all(torch.equal(a, b) for a, b in zip(
+            checkpoint.state_leaves(state), ref))
+            and torch.equal(losses, ref_losses))
+
+    capped = make_dp_train_step(config, HEIGHT, WIDTH, device=dev,
+                                key_cap=cap)
+    eager, losses = start, []
+    for i in range(WINDOW):
+        eager, m, _ = capped(eager, *(x[i] for x in rows), band)
+        losses.append(m["loss"])
+    eager_same = same(eager, torch.stack(losses))
+    collectives = [(c.op, c.numel) for c in capped.collectives]
+    del eager, capped
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    window = make_dp_train_step(config, HEIGHT, WIDTH, device=dev,
+                                scan_steps=WINDOW, key_cap=cap)
+    reserved0 = torch.cuda.memory_reserved()
+    (got, wm, fs), first_ms = synced_ms(window, start, *rows, band)
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    same1 = same(got, wm["loss"])
+    again, wm2, _ = window(start, *rows, band)  # replayed from the start
+    same2 = same(again, wm2["loss"])
+    (graph,) = window.graphs.values()
+    state = again
+
+    def run():
+        nonlocal state
+        state = window(state, *rows, band)[0]
+    window_ms = cuda_ms(run, reps=10, warmup=1) / WINDOW
+    busy, launches = window_profile(run, reps=3)
+    a = {"mode": window.mode, "captures": window.captures,
+         "graphs": len(window.graphs), "backend": dist.get_backend(),
+         "cap": cap, "eager_steps_equal": eager_same, "window_equal": same1,
+         "replay_equal": same2, "losses": [float(v) for v in wm["loss"]],
+         "finite_frame": bool(torch.isfinite(fs["pred"]).all()),
+         "first_call_ms": first_ms, "capture_s": graph.capture_s,
+         "pool_gib": pool_gib, "ms_per_step": window_ms,
+         "device_ms_per_step": busy["device_busy_ms"] / 3 / WINDOW,
+         "profile": busy, "launches": launches, "collectives": collectives}
+    del window, graph, got, again, state, fs
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # phase 10a's path: the eager data-parallel step, exact sizing, timed
+    exact = make_dp_train_step(config, HEIGHT, WIDTH, device=dev)
+    cur = {"s": start}
+
+    def dp_step():
+        cur["s"] = exact(cur["s"], *(x[0] for x in rows), band)[0]
+    a["eager_dp_step_ms"] = cuda_ms(dp_step, reps=5, warmup=2)
+    a["seconds"] = time.perf_counter() - t0
+    del cur, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xyz, feats_l = truck_scene_surround(N_POINTS)
+    loop = run_window_loop(xyz, feats_l, full_K_np(), loop_ms, dev,
+                           label="(c) NCCL, one rank,", multihost=True)
+    loop["seconds"] = time.perf_counter() - t0
+    return {"a": a, "c": loop}
+
+
+def dp_window_gloo(setup, cap: int, ref_path: str) -> dict:
+    """Phase 15 (b) and the gloo loop of (c), on this rank of two (gloo,
+    sharing the card; ``setup``: ``rank_setup()``'s): a window of
+    DP_WINDOW_B steps at ``cap`` on views (2s, 2s + 1) of ``poses()``, rank
+    r taking view 2s + r, against ``ref_path`` (the group-of-one step on
+    both rows, ``dp_window_reference``), then a second, warm window
+    timed; then phase 14d's loop, cut to GLOO_LOOP_ITERS iterations, with
+    ``data_parallel_devices: 2``."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    t0 = time.perf_counter()
+    rank = mh.rank()
+    dev, feats, camera, config, _, start, inputs = setup
+    band = inputs[4]
+    views = view_targets(start, feats, camera,
+                         list(range(2 * DP_WINDOW_B)), {"tile_size": TILE})
+    rows = window_rows(views, [[2 * s + rank] for s in range(DP_WINDOW_B)])
+    window = make_dp_train_step(config, HEIGHT, WIDTH, device=dev,
+                                scan_steps=DP_WINDOW_B, key_cap=cap)
+    kernels = rank_kernels()
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_launches(kernels)
+    (new, wm, _), first_ms = synced_ms(window, start, *rows, band)
+    launches = read_launches(kernels)
+    ref = torch.load(ref_path, map_location=dev)
+    leaves = state_leaves(new)
+    b = {"mode": window.mode, "captures": window.captures,
+         "graphs": len(window.graphs), "backend": dist.get_backend(),
+         "digest": state_digest(new),
+         "losses": [float(v) for v in wm["loss"]],
+         "ref_losses": ref["losses"],
+         "gate_excess": {k: gate_excess(leaves[k], ref[k])
+                         for k in ("features", "xyz", "feat_mu", "pos_mu")},
+         "num_in_camera_equal": bool(torch.equal(
+             leaves["ctrl_num_in_camera"], ref["ctrl_num_in_camera"])),
+         "first_call_ms_per_step": first_ms / DP_WINDOW_B,
+         "launches": launches}
+    del leaves, ref
+    # a second window from where the first ended, warm: ms a step
+    dist.barrier()
+    _, ms = synced_ms(window, new, *rows, band)
+    b["ms_per_step"] = ms / DP_WINDOW_B
+    b["seconds"] = time.perf_counter() - t0
+    del window, new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    xyz, feats_l = truck_scene_surround(N_POINTS)
+    views = loop_views(full_K_np(), dev)
+    Trainer = loop_trainer_class(views[:6], views[6:], xyz, feats_l, [])
+    log_dir = tempfile.TemporaryDirectory()
+    trainer = Trainer(loop_config(
+        log_dir.name, steps_per_dispatch=WINDOW, data_parallel_devices=2,
+        num_iterations=GLOO_LOOP_ITERS), device=dev)
+    windows = record_windows(trainer)
+    state, loop_ms = synced_ms(trainer.train)
+    log_dir.cleanup()
+    return {"b": b, "loop": {
+        "windows": windows, "digest": state_digest(state),
+        "ms_per_iteration": loop_ms / GLOO_LOOP_ITERS,
+        "finite": bool(torch.isfinite(state.scene.features).all()),
+        "seconds": time.perf_counter() - t0}}
+
+
+def dp_window_reference(xyz, feats, path: str) -> int:
+    """Phase 15 (b)'s reference, in this process (no process group: a
+    group of one): DP_WINDOW_B capped data-parallel steps on both rows of
+    each step, at phase 14a's capacity (``eager_key_cap``), saved to
+    ``path``. Returns the capacity."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    camera = full_camera(HEIGHT, WIDTH, "cuda")
+    config, step, state, inputs = train_setup(xyz, feats, camera,
+                                              {"tile_size": TILE})
+    band = inputs[4]
+    views = view_targets(state, feats, camera,
+                         list(range(2 * DP_WINDOW_B)), {"tile_size": TILE})
+    cap = eager_key_cap(step, state, views, band)
+    rows = window_rows(views, [[2 * s, 2 * s + 1]
+                               for s in range(DP_WINDOW_B)])
+    dp = make_dp_train_step(config, HEIGHT, WIDTH, device="cuda",
+                            key_cap=cap)
+    losses = []
+    for s in range(DP_WINDOW_B):
+        state, m, _ = dp(state, *(x[s] for x in rows), band)
+        losses.append(float(m["loss"]))
+    leaves = state_leaves(state)
+    torch.save({**{k: leaves[k] for k in ("features", "xyz", "feat_mu",
+                                          "pos_mu", "ctrl_num_in_camera")},
+                "losses": losses}, path)
+    return cap
+
+
+def check_dp_windows(res: dict, ref14: dict) -> dict:
+    """Phase 15's record (``res``: what the ranks of phases 10-12 ran for
+    it, ``run_multi_rank``), printed and held to its gates; ``ref14``:
+    phase 14's record."""
+    a, loop = res["nccl"]["a"], res["nccl"]["c"]
+    cap14 = ref14["window_key_cap"]
+    print(f"  (a) NCCL, one rank, {WINDOW} steps a window at key_cap "
+          f"{a['cap']} (phase 14a: {cap14}): mode {a['mode']}, captures "
+          f"{a['captures']}, graphs {a['graphs']}; bit for bit against phase"
+          f" 14a's single-device window: window {a['window_equal']}, "
+          f"replayed from the start {a['replay_equal']}, {WINDOW} eager "
+          f"capped DP steps {a['eager_steps_equal']}; {a['ms_per_step']:.3f}"
+          f" ms a step over warm replays (phase 14c: "
+          f"{ref14['window_ms_per_step']:.3f}; the eager DP step, phase "
+          f"10a's path: {a['eager_dp_step_ms']:.3f}), device "
+          f"{a['device_ms_per_step']:.3f} ms a step, busy "
+          f"{a['profile']['busy_share']:.3f}; capture {a['capture_s']:.3f} s,"
+          f" first call {a['first_call_ms']:.1f} ms, pool {a['pool_gib']:.3f}"
+          f" GiB (phase 14a: {ref14['window_pool_reserved_gib']:.3f}); "
+          f"launches a window from the trace {a['launches']}, NCCL's kernels "
+          f"{a['profile']['nccl_launches_per_window']}; collectives a step "
+          f"{a['collectives']} [{a['seconds']:.1f} s in the rank]",
+          flush=True)
+    if a["backend"] != "nccl" or a["mode"] != "graph" or a[
+            "captures"] != 1 or a["graphs"] != 1:
+        raise AssertionError(f"15a: not one graph over NCCL: {a}")
+    if a["cap"] != cap14 or res["gloo_cap"] != cap14:
+        raise AssertionError(f"15: capacities {a['cap']}, "
+                             f"{res['gloo_cap']} against phase 14a's {cap14}")
+    if not (a["window_equal"] and a["replay_equal"]
+            and a["eager_steps_equal"] and a["finite_frame"]):
+        raise AssertionError("15a: the DP window differs from the "
+                             "single-device window or its eager steps")
+    for name, n in a["launches"].items():
+        if n != WINDOW * len(WINDOW_SYMBOLS[name]):
+            raise AssertionError(f"15a {name}: {n} launches in a window of "
+                                 f"{WINDOW} steps")
+    wins = loop["window_loop_windows"]
+    print(f"  (c) NCCL, one rank: {loop['window_loop_ms_per_iteration']:.2f}"
+          f" ms an iteration over train() (phase 14d: "
+          f"{ref14['window_loop_ms_per_iteration']:.2f}); windows "
+          f"{len(wins)}, captures {sum(r['captured'] for r in wins)}, "
+          f"refits {loop['window_loop_refits']}, resume equal "
+          f"{loop['window_loop_resume_equal']} [{loop['seconds']:.1f} s in "
+          f"the rank]", flush=True)
+    keys = {(tuple(r["size"]), r["sh_band"], r["key_cap"]) for r in wins}
+    if (len(wins) < 2 or any(r["graphs_held"] != 1 for r in wins)
+            or sum(r["captured"] for r in wins) != len(keys)
+            or not loop["window_loop_resume_equal"]):
+        raise AssertionError(f"15c (NCCL): windows, captures or the resume:"
+                             f" {loop}")
+
+    b = [r["b"] for r in res["gloo"]]
+    gl = [r["loop"] for r in res["gloo"]]
+    print(f"  (b) gloo, two ranks sharing the card, {DP_WINDOW_B} steps on "
+          f"views (2s, 2s+1): modes {[x['mode'] for x in b]}, captures "
+          f"{[x['captures'] for x in b]}; digests equal "
+          f"{b[0]['digest'] == b[1]['digest']}; losses {b[0]['losses']} "
+          f"(group of one on both rows {b[0]['ref_losses']}); gate excess "
+          f"{b[0]['gate_excess']}; {[x['ms_per_step'] for x in b]} ms a step"
+          f" warm (first call {[x['first_call_ms_per_step'] for x in b]}); "
+          f"launches {[x['launches'] for x in b]} [{b[0]['seconds']:.1f} s "
+          f"in the ranks]", flush=True)
+    print(f"  (c) gloo, two ranks, {GLOO_LOOP_ITERS} iterations with "
+          f"steps_per_dispatch {WINDOW}: windows {gl[0]['windows']}; "
+          f"digests equal {gl[0]['digest'] == gl[1]['digest']}; "
+          f"{[x['ms_per_iteration'] for x in gl]} ms an iteration "
+          f"[{gl[0]['seconds']:.1f} s in the ranks]", flush=True)
+    if any(x["backend"] != "gloo" or x["mode"] != "eager" or x["captures"]
+           or x["graphs"] for x in b):
+        raise AssertionError(f"15b: not eager over gloo: {b}")
+    if b[0]["digest"] != b[1]["digest"]:
+        raise AssertionError("15b: the ranks' states differ")
+    if (not np.allclose(b[0]["losses"], b[0]["ref_losses"], rtol=1e-5,
+                        atol=0)
+            or max(b[0]["gate_excess"].values()) > 0
+            or not b[0]["num_in_camera_equal"]):
+        raise AssertionError("15b: outside the gates of the group of one")
+    for x in b:
+        if any(v != DP_WINDOW_B for v in x["launches"].values()):
+            raise AssertionError(f"15b launches {x['launches']}")
+    if (gl[0]["digest"] != gl[1]["digest"] or not gl[0]["finite"]
+            or not gl[0]["windows"] or gl[0]["windows"] != gl[1]["windows"]):
+        raise AssertionError(f"15c (gloo): {gl}")
+    for x in b:
+        x.pop("digest")
+    return {"dp_window_nccl": a, "dp_window_nccl_loop": loop,
+            "dp_window_gloo": b, "dp_window_gloo_loop": gl}
 
 
 # --- main -------------------------------------------------------------------
@@ -3083,7 +3468,8 @@ def main(argv=None) -> int:
     ftgmm = run_ftgmm(loop_scene, Path(work_dir.name))
     # phases 10-13: ranks in processes of their own, each counting its
     # launches around each path
-    multi = run_multi_rank(xyz, feats, frames, Path(work_dir.name), phase)
+    multi = run_multi_rank(xyz, feats, frames, Path(work_dir.name), phase,
+                           loop["loop_ms_per_iteration"])
     work_dir.cleanup()
     # phase 14: windows of steps, each one CUDA graph replay; the launches
     # come from the profiler's trace of replays
@@ -3095,6 +3481,13 @@ def main(argv=None) -> int:
     windowed.update(run_window_loop(xyz, feats, K_np,
                                     loop["loop_ms_per_iteration"]))
     windowed.update(run_window_reuse(xyz, feats, K_np))
+    # phase 15: windows of data-parallel steps, run by the ranks of phases
+    # 10-12 (a graph in the NCCL group of one, eager over gloo); each rank
+    # counts its own launches (gloo) or reads them from its trace of
+    # replays (NCCL)
+    phase("phase 15: data-parallel windows at full width (one CUDA graph a "
+          "window in an NCCL group of one, eager over gloo)")
+    dpw = check_dp_windows(multi.pop("dp_windows"), windowed)
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -3196,6 +3589,14 @@ def main(argv=None) -> int:
             # phase 14: a window of WINDOW steps, counted from the
             # profiler's trace of its replays
             "launches_window_replay": windowed["window_launches"][name],
+            # phase 15, per rank: a DP window of WINDOW steps in a group of
+            # one over NCCL (from the trace of its replays) and of
+            # DP_WINDOW_B steps on two gloo ranks (the counters)
+            "launches_dp_window_world1": dpw["dp_window_nccl"]["launches"][
+                name],
+            "launches_dp_window_per_rank": [
+                sum(x["launches"][c] for c in counters)
+                for x in dpw["dp_window_gloo"]],
             "ms_window_replay": windowed["window_profile"][
                 "kernel_ms_under_replay"][name],
             "kernel_symbols": [sym for _, sym in timed[name][0]],
@@ -3226,6 +3627,7 @@ def main(argv=None) -> int:
         "render_peak_mem_gib": peak_gib,
         "stage_ms": stages, "profile": busy,
         **train, **loop, **pose, **viewer, **dataset, **ftgmm, **windowed,
+        **dpw,
         "multi_rank": multi,
         "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
@@ -3246,8 +3648,11 @@ def main(argv=None) -> int:
           f"{[r['ms_per_step'] for r in multi['tp']]} ms; windowed step "
           f"{windowed['window_ms_per_step']:.3f} ms ({WINDOW} steps a graph "
           f"replay), the loop with windows "
-          f"{windowed['window_loop_ms_per_iteration']:.2f} ms an iteration",
-          flush=True)
+          f"{windowed['window_loop_ms_per_iteration']:.2f} ms an iteration; "
+          f"DP window over NCCL (one rank) "
+          f"{dpw['dp_window_nccl']['ms_per_step']:.3f} ms a step, its loop "
+          f"{dpw['dp_window_nccl_loop']['window_loop_ms_per_iteration']:.2f}"
+          f" ms an iteration", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -23,10 +23,18 @@ packed f32 buffer, one MAX of a packed f64 buffer (the key total and the
 nearest visible depth), and, under pose refinement, a second SUM. Without
 a process group the step is a group of one and the rows are the whole
 batch (``mh_smoke.single_process_reference`` runs it so).
+
+Windows (``scan_steps``, the JAX step's ``lax.scan`` inside ``shard_map``):
+k capped steps a call, each with its collectives, through the
+single-device step's window machinery (``training.trainer.make_window``):
+one CUDA graph a window with no process group or in an NCCL group of one,
+the steps in a loop over gloo, in an NCCL group of several ranks and on the
+CPU. The capped step reads no host value (the
+key total, the pose rows and their masked scatter stay on the device).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -44,18 +52,19 @@ from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
     POSE_B1,
     POSE_B2,
     POSE_EPS,
-    DP_WINDOWS_REFUSAL,
     TrainState,
     apply_grads,
     camera_pass,
     grad_factor_vector,
     make_optimizers,
+    make_window,
     train_rasterizer_config,
 )
 
 
 def make_dp_train_step(config: TrainConfig, height: int, width: int,
-                       device="cuda", scan_steps: int = 0):
+                       device="cuda", scan_steps: int = 0,
+                       key_cap: Optional[int] = None):
     """The data-parallel step for one (height, width) image size:
     ``step(state, images, qs, ts, Ks, sh_band, img_idx=None) -> (new_state,
     metrics, frame_stats)``. ``images`` (B_local, H, W, 3) uint8 or f32,
@@ -63,7 +72,10 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
     this rank's rows of the global batch (rank order: rank r holds rows
     [r * B_local, (r + 1) * B_local)); every rank passes the same B_local.
     Under ``pose_refinement``, ``img_idx`` holds each row's view index
-    (host ints; -1 holds that row's pose still).
+    (host ints or a (B_local,) int64 device tensor; None: all -1). A row's
+    pose is gathered on the device and its update masked, so a -1 row
+    renders the pose as given through a zero delta, computes its pose
+    cotangent and moves no row, as the JAX step does.
 
     With identical cameras on every row the step equals the single-device
     step; ``frame_stats`` follow the JAX step's: visibility-weighted means
@@ -71,12 +83,26 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
     over visible cameras, and the display arrays (``pred``, ``depth_img``,
     ``count_img``, ``point_uv``, ``imggrad``) of global batch row 0 on rank
     0, the rank that logs (other ranks hold their own first row's).
-    ``step.collectives`` lists the collectives of the last call.
-    ``scan_steps`` > 0 (a window of steps) raises NotImplementedError: the
-    single-device step's windows are ported, the data-parallel ones not
-    yet."""
-    if scan_steps > 0:
-        raise NotImplementedError(DP_WINDOWS_REFUSAL)
+    ``step.collectives`` lists the collectives of the last eager call (or
+    of the capture: a graph replay runs no Python).
+
+    ``key_cap``: None sizes each row's key buffers to its frame's exact
+    total; an int is the static key capacity (``ops/tiling.py``), and the
+    step then reads no host value: ``metrics["num_keys"]``, the largest
+    true total over the batch's cameras, stays a device scalar.
+
+    ``scan_steps`` k > 0 returns the JAX package's window instead:
+    ``windowed(state, images (k, B_local, H, W, 3), qs (k, B_local, 4), ts
+    (k, B_local, 3), Ks (k, B_local, 3, 3), sh_band, img_idxs (k, B_local)
+    | None) -> (state, metrics stacked (k,), frame_stats of the last
+    step)``: k capped steps (``key_cap``, else
+    ``rasterisation_config.key_cap``), with their collectives, as
+    ``training.trainer.make_train_step``'s window runs them. With no
+    process group or in an NCCL group of one a window is one CUDA graph on
+    a card; over gloo, in an NCCL group of several ranks and on the CPU
+    its steps run eagerly in order (``windowed.mode``)."""
+    if scan_steps > 0 and key_cap is None:
+        key_cap = config.rasterisation_config.key_cap
     rcfg = train_rasterizer_config(config)
     lcfg = config.loss_function_config
     optimizers = make_optimizers(config)
@@ -84,8 +110,7 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
     gf = torch.from_numpy(grad_factor_vector(rcfg)).to(dev)
     pose_refine = config.pose_refinement
 
-    def step(state: TrainState, images, qs, ts, Ks, sh_band,
-             img_idx: Optional[Sequence[int]] = None):
+    def step(state: TrainState, images, qs, ts, Ks, sh_band, img_idx=None):
         scene = state.scene
         n = scene.capacity
         b_local = images.shape[0]
@@ -93,10 +118,8 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
         log = []
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) * (1.0 / 255.0)
-        idx = ([-1] * b_local if img_idx is None
-               else [int(i) for i in img_idx])
 
-        d_xyz = d_features = None
+        d_xyz = d_features = num_keys = None
         contrib = ctrl.init_state(n, device=dev)
         vis_sum = torch.zeros(n, dtype=torch.float32, device=dev)
         npix_sum = torch.zeros_like(vis_sum)
@@ -106,24 +129,24 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
         depth_min = torch.full((n,), float("inf"), dtype=torch.float32,
                                device=dev)
         scalars = torch.zeros(4, dtype=torch.float32, device=dev)
-        num_keys = 0
         if pose_refine:
-            n_img = state.pose_deltas.shape[0]
-            g_rows = torch.zeros((n_img, 6), dtype=torch.float32, device=dev)
-            touch = torch.zeros((n_img,), dtype=torch.float32, device=dev)
+            pose_idx = (torch.full((b_local,), -1, dtype=torch.int64,
+                                   device=dev) if img_idx is None
+                        else torch.as_tensor(img_idx, dtype=torch.int64,
+                                             device=dev).reshape(b_local))
+            rows_i = torch.clamp_min(pose_idx, 0)
+            d_rows = []
         first = None
         for r in range(b_local):
             camera = Camera(K=Ks[r], width=width, height=height)
             delta = None
             if pose_refine:
-                on = idx[r] >= 0
-                if on:
-                    delta = state.pose_deltas[idx[r]].detach()
-                    delta.requires_grad_(True)
-                else:
-                    delta = torch.zeros(6, dtype=torch.float32, device=dev)
+                row = state.pose_deltas.index_select(0, rows_i[r:r + 1])[0]
+                delta = torch.where(pose_idx[r] >= 0, row,
+                                    torch.zeros_like(row))
+                delta.requires_grad_(True)
             cp = camera_pass(scene, images[r], qs[r], ts[r], camera, rcfg,
-                             lcfg, gf, sh_band, delta)
+                             lcfg, gf, sh_band, delta, key_cap=key_cap)
             with torch.no_grad():
                 st = cp.stats
                 # per-CAMERA accumulator contribution (pre-average
@@ -148,10 +171,13 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
                     torch.full_like(depth_min, float("inf"))))
                 scalars = scalars + torch.stack([
                     cp.loss, cp.l1, cp.ssim, psnr_fn(cp.pred, images[r])])
-                num_keys = max(num_keys, cp.ctx.keys.total)
-                if pose_refine and idx[r] >= 0:
-                    g_rows[idx[r]] += cp.d_delta
-                    touch[idx[r]] += 1.0
+                # the true total: a device scalar on the capped path, a
+                # host int (already synced) on the exact one
+                total = torch.as_tensor(cp.ctx.keys.total, device=dev)
+                num_keys = (total if num_keys is None
+                            else torch.maximum(num_keys, total))
+                if pose_refine:
+                    d_rows.append(cp.d_delta)
                 if first is None:
                     first = cp
                 del cp
@@ -163,11 +189,10 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
             sums = mh.all_reduce_packed(sums, "sum", log=log)
             (d_xyz, d_features), contrib = sums[:2], sums[2:8]
             vis_c, npix_c, mag_c, tiles_c, guv_c, scalars = sums[8:]
-            keys_t = torch.tensor([float(num_keys)], dtype=torch.float64,
-                                  device=dev)
+            # the key total rides in the f64 MAX buffer (exact below 2^53)
             neg_depth, keys_t = mh.all_reduce_packed(
-                [-depth_min, keys_t], "max", dtype=torch.float64,
-                log=log)
+                [-depth_min, num_keys.to(torch.float64).reshape(1)], "max",
+                dtype=torch.float64, log=log)
             depth_min = (-neg_depth).to(torch.float32)
 
             d_xyz = d_xyz / batch
@@ -177,6 +202,22 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
 
             pose = None
             if pose_refine:
+                # each row's own (un-averaged) cotangent scattered to its
+                # view's row; a -1 row adds nothing (masked, not branched).
+                # One row an add, in batch order: rows that share a view
+                # sum in a fixed order (one index_add_ of all rows would
+                # add them with atomics, in no fixed order, on a card)
+                on = pose_idx >= 0
+                n_img = state.pose_deltas.shape[0]
+                g_rows = torch.zeros((n_img, 6), dtype=torch.float32,
+                                     device=dev)
+                touch = torch.zeros((n_img,), dtype=torch.float32,
+                                    device=dev)
+                for r, d in enumerate(d_rows):
+                    at = rows_i[r:r + 1]
+                    g_rows.index_add_(0, at, torch.where(
+                        on[r], d, torch.zeros_like(d))[None])
+                    touch.index_add_(0, at, on[r:r + 1].to(torch.float32))
                 g_rows, touch = mh.all_reduce_packed(
                     [g_rows, touch], "sum", log=log)
                 # an image index can land on several rows of one batch (a
@@ -231,7 +272,9 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
         return new_state, metrics, frame_stats
 
     step.collectives = []
-    return step
+    if scan_steps <= 0:
+        return step
+    return make_window(step, scan_steps, dev, pose_refine)
 
 
 def frame_stats_aux(frame_stats: dict) -> dict:

@@ -201,6 +201,16 @@ def all_reduce_packed(tensors: Sequence[torch.Tensor], op: str = "sum",
     return out
 
 
+def warm_communicator(device) -> None:
+    """One eager collective on ``device``, then a sync: the communicator
+    exists before a CUDA graph captures collectives (NCCL creates it at its
+    first collective, which a capture cannot hold)."""
+    if dist.is_initialized():
+        dist.all_reduce(torch.zeros(1, device=device))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+
 def _broadcast_tensor(t: torch.Tensor, src: int, group) -> torch.Tensor:
     if t.dtype == torch.bool:  # gloo has no bool: move the bytes
         buf = t.contiguous().view(torch.uint8)

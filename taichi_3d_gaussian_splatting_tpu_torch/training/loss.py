@@ -29,6 +29,17 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+def host_constant(array: np.ndarray, device) -> torch.Tensor:
+    """A host-made constant as a tensor on ``device``. To a card it goes
+    from pinned memory without a host sync, so a constant first needed in
+    a window's warm-up (run under the sync-debug mode "error" before the
+    capture) does not stop it."""
+    t = torch.from_numpy(array)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 _WINDOWS: dict = {}
 
 
@@ -38,8 +49,8 @@ def _window_on(device, size: int, sigma: float) -> torch.Tensor:
     key = (str(device), size, sigma)
     win = _WINDOWS.get(key)
     if win is None:
-        win = _WINDOWS[key] = torch.from_numpy(
-            _gaussian_window(size, sigma)).to(device)
+        win = _WINDOWS[key] = host_constant(_gaussian_window(size, sigma),
+                                            device)
     return win
 
 

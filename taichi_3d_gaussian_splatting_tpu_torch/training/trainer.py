@@ -26,10 +26,12 @@ sync; keys past the capacity are dropped, as the JAX package drops them
 needs.
 
 Windows. ``make_train_step(..., scan_steps=k)`` runs k capped steps a
-call, the JAX package's ``lax.scan`` window. On a card the k steps are one
+call, the JAX package's ``lax.scan`` window (``make_window``, which the
+data-parallel window shares). On a card the k steps are one
 ``torch.cuda.CUDAGraph``, captured after one eager warm-up and replayed
 each call, so the state lives in the graph's static buffers between
-windows; on the CPU they run in a loop.
+windows; on the CPU, over gloo and in an NCCL group of several ranks they
+run in a loop (``window_mode``).
 
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
 the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``. Its update
@@ -42,7 +44,8 @@ with scene exports and a full checkpoint, resume, and metrics to
 TensorBoard (tensorboardX, when importable) and to the console as the
 ``key=value;`` lines a SageMaker-style scraper reads. With
 ``steps_per_dispatch`` k > 1 it runs windows of up to k capped steps between
-the iterations that need host work (``_window_size``), starting from
+the iterations that need host work (``_window_size``), on one device or on
+the data-parallel ranks, starting from
 ``rasterisation_config.key_cap`` and refitting it every 100 iterations from
 the live key total (``_maybe_rebucket_key_cap``). Validation keeps the
 exact sizing: its frames are the JAX trainer's after its eval refit (which
@@ -83,6 +86,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.training import controller as ctrl
 from taichi_3d_gaussian_splatting_tpu_torch.training.config import TrainConfig
 from taichi_3d_gaussian_splatting_tpu_torch.training.loss import (
     compute_loss,
+    host_constant,
     psnr as psnr_fn,
     ssim as ssim_fn,
 )
@@ -146,8 +150,8 @@ def _bias_table(b: float, device) -> torch.Tensor:
         rows = [np.float32(0.0)]
         while rows[-1] != one:
             rows.append(one - bf ** np.float32(len(rows)))
-        table = _BIAS_TABLES[key] = torch.from_numpy(
-            np.asarray(rows, np.float32)).to(device)
+        table = _BIAS_TABLES[key] = host_constant(
+            np.asarray(rows, np.float32), device)
     return table
 
 
@@ -394,14 +398,9 @@ def apply_grads(state: TrainState, optimizers, d_xyz: torch.Tensor,
         pose_opt=pose_opt)
 
 
-# the refusals of windows the port does not run (the JAX trainer's message
-# for the band step; data-parallel windows are a later slice)
+# the JAX trainer's refusal of windows of band steps
 TP_WINDOWS_REFUSAL = ("tile_parallel training runs one dispatch per step "
                       "(steps_per_dispatch must be 1)")
-DP_WINDOWS_REFUSAL = (
-    "data-parallel windows (steps_per_dispatch > 1, scan_steps > 0) are not "
-    "ported yet: they are the next slice in ROADMAP.md (A11); train "
-    "data-parallel with steps_per_dispatch: 1")
 
 
 def train_rasterizer_config(config: TrainConfig) -> RasterizerConfig:
@@ -440,15 +439,15 @@ def make_train_step(config: TrainConfig, height: int, width: int,
     ``rasterisation_config.key_cap``) on images (k, H, W, 3), qs (k, 4), ts
     (k, 3), Ks (k, 3, 3) and, under pose refinement, img_idxs (k,) (host
     ints or a device tensor; None: all -1). ``metrics`` are stacked (k,),
-    ``aux`` is the last step's. On a card the k steps are one CUDA graph
-    (``_CapturedWindow``) for the (sh_band, pool capacity, image dtype,
-    pose rows) of the call; a call with another of these releases the
-    graph and captures a new one (``windowed.captures`` counts them). The
-    returned state and aux are the graph's static buffers, which the next
-    call of the window overwrites (a state returned by it may be passed
-    back as it is; any other state, or any leaf of it, is copied in). On
-    the CPU the steps run in a loop and the input state is left as it
-    was."""
+    ``aux`` is the last step's. On a card (``window_mode``) the k steps
+    are one CUDA graph (``_CapturedWindow``) for the (sh_band, pool
+    capacity, image dtype, pose rows) of the call; a call with another of
+    these releases the graph and captures a new one (``windowed.captures``
+    counts them). The returned state and aux are the graph's static
+    buffers, which the next call of the window overwrites (a state
+    returned by it may be passed back as it is; any other state, or any
+    leaf of it, is copied in). On the CPU the steps run in a loop and the
+    input state is left as it was."""
     if scan_steps > 0 and split_bands:
         raise ValueError(TP_WINDOWS_REFUSAL)
     if scan_steps > 0 and key_cap is None:
@@ -524,7 +523,7 @@ def make_train_step(config: TrainConfig, height: int, width: int,
     step.collectives = []
     if scan_steps <= 0:
         return step
-    return _make_window(step, scan_steps, dev, pose_refine)
+    return make_window(step, scan_steps, dev, pose_refine)
 
 
 def _tree_map(fn, *trees):
@@ -547,6 +546,23 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
 
 
+def window_mode(dev: torch.device) -> str:
+    """How a window of steps runs on ``dev``, decided here alone: "graph"
+    (the k steps one ``torch.cuda.CUDAGraph``) on a card with no process
+    group or in an NCCL group of one; "eager" (the steps in a loop) on the
+    CPU, over gloo, which copies CUDA buffers through the host, where no
+    graph can follow, and in an NCCL group of several ranks, whose capture
+    has not yet been seen to complete on the card (ROADMAP C)."""
+    import torch.distributed as dist
+
+    if dev.type != "cuda":
+        return "eager"
+    if dist.is_initialized() and (dist.get_backend() != "nccl"
+                                  or dist.get_world_size() > 1):
+        return "eager"
+    return "graph"
+
+
 class _CapturedWindow:
     """A window of k steps as one ``torch.cuda.CUDAGraph``, for one
     (sh_band, pool capacity, image dtype, pose rows).
@@ -558,13 +574,30 @@ class _CapturedWindow:
     capture. Then the steps are captured once, ending with copies of the
     new state into the static state, so each replay moves that state on by
     k steps in place. A failed capture raises; there is no eager
-    fallback."""
+    fallback.
+
+    In a process group (an NCCL group of one: ``window_mode``) the steps'
+    collectives are captured with them. The communicator is warmed by one
+    eager collective first, and the capture is "thread_local": the process
+    group's watchdog thread queries the events of earlier collectives,
+    which the default "global" mode forbids to every thread while a
+    capture runs."""
 
     def __init__(self, run, state: TrainState, inputs: tuple, sh_band):
+        import torch.distributed as dist
+
         dev = state.scene.xyz.device
         self.inputs = tuple(None if x is None else x.detach().clone()
                             for x in inputs)
         self.state = _tree_map(lambda x: x.detach().clone(), state)
+        capture_mode = "global"
+        if dist.is_initialized():
+            from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+                multihost as mh,
+            )
+
+            mh.warm_communicator(dev)
+            capture_mode = "thread_local"
         torch.cuda.synchronize(dev)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -575,7 +608,7 @@ class _CapturedWindow:
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode=capture_mode):
             new_state, self.metrics, self.aux = run(
                 self.state, *self.inputs, sh_band)
             _tree_map(_copy_in, self.state, new_state)
@@ -592,15 +625,21 @@ class _CapturedWindow:
                 self.aux)
 
 
-def _make_window(step, k: int, dev: torch.device, pose_refine: bool):
-    """``make_train_step``'s window of k steps of ``step`` (a capped step)."""
+def make_window(step, k: int, dev: torch.device, pose_refine: bool):
+    """The window of k steps of ``step`` (a capped step: the single-device
+    one of ``make_train_step`` or the data-parallel one of
+    ``parallel.data_parallel.make_dp_train_step``):
+    ``windowed(state, images, qs, ts, Ks, sh_band, img_idxs=None)``, each
+    input stacked (k, ...) over the step's own, the pose indices (k,) or
+    (k, B_local). ``windowed.mode`` is ``window_mode(dev)``."""
 
     def run(state, images, qs, ts, Ks, idxs, sh_band):
         rows = []
         aux = None
         for i in range(k):
+            extra = () if idxs is None else (idxs[i],)
             state, m, aux = step(state, images[i], qs[i], ts[i], Ks[i],
-                                 sh_band, -1 if idxs is None else idxs[i])
+                                 sh_band, *extra)
             rows.append(m)
         return state, {name: torch.stack([m[name] for m in rows])
                        for name in rows[0]}, aux
@@ -612,11 +651,13 @@ def _make_window(step, k: int, dev: torch.device, pose_refine: bool):
                              "images")
         idxs = None
         if pose_refine:
-            idxs = (torch.full((k,), -1, dtype=torch.int64, device=dev)
+            rows = images.shape[:-3]  # (k,) or (k, B_local)
+            idxs = (torch.full(rows, -1, dtype=torch.int64, device=dev)
                     if img_idxs is None else torch.as_tensor(
-                        img_idxs, dtype=torch.int64, device=dev))
+                        img_idxs, dtype=torch.int64, device=dev).reshape(
+                            rows))
         inputs = (images, qs, ts, Ks, idxs)
-        if dev.type != "cuda":
+        if windowed.mode == "eager":
             return run(state, *inputs, sh_band)
         key = (int(sh_band), state.scene.capacity, images.dtype,
                None if idxs is None else state.pose_deltas.shape[0])
@@ -630,6 +671,7 @@ def _make_window(step, k: int, dev: torch.device, pose_refine: bool):
             windowed.captures += 1
         return graph(state, inputs)
 
+    windowed.mode = window_mode(dev)
     windowed.graphs = {}
     windowed.captures = 0
     return windowed
@@ -693,10 +735,9 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _refuse_unported(config: TrainConfig) -> None:
-    """Raise for the combinations the JAX trainer refuses (ValueError, its
-    messages) and for the options the port does not port
-    (NotImplementedError)."""
+def _refuse_combinations(config: TrainConfig) -> None:
+    """Raise ValueError, with the JAX trainer's messages, for the
+    combinations it refuses."""
     if config.tile_parallel_devices > 1:
         if (config.data_parallel_devices > 1 or config.multihost
                 or config.pose_refinement):
@@ -706,9 +747,6 @@ def _refuse_unported(config: TrainConfig) -> None:
                 "pose_refinement")
         if config.steps_per_dispatch > 1:
             raise ValueError(TP_WINDOWS_REFUSAL)
-    if config.steps_per_dispatch > 1 and (config.data_parallel_devices > 1
-                                          or config.multihost):
-        raise NotImplementedError(DP_WINDOWS_REFUSAL)
 
 
 def fit_key_cap(total_keys: int, minimum: int = 2 ** 15,
@@ -780,7 +818,7 @@ class GaussianPointCloudTrainer:
             multihost as mh,
         )
 
-        _refuse_unported(config)
+        _refuse_combinations(config)
         self.config = config
         self.parallel = _join_parallel_group(config, device)
         self.world = mh.world_size() if self.parallel else 1
@@ -849,21 +887,22 @@ class GaussianPointCloudTrainer:
 
     def _get_step(self, h: int, w: int, scan_steps: int = 0):
         """The step (``scan_steps`` 0) or the window of ``scan_steps`` steps
-        for one image size; capped at ``_key_cap`` under
-        ``steps_per_dispatch`` > 1 (cached by (h, w, key_cap, scan_steps)),
-        else sized exactly (cached by (h, w))."""
+        for one image size, single-device or data-parallel; capped at
+        ``_key_cap`` under ``steps_per_dispatch`` > 1 (cached by (h, w,
+        key_cap, scan_steps)), else sized exactly (cached by (h, w)). The
+        JAX trainer's data-parallel steps are capped too."""
         key_cap = self._key_cap if self._capped else None
         key = (h, w) if key_cap is None else (h, w, key_cap, scan_steps)
         if key not in self._step_cache:
-            kw = {}
+            kw = dict(scan_steps=scan_steps, key_cap=key_cap)
             if self.parallel == "tp":
                 from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (  # noqa: E501
                     make_tp_train_step,
                 )
 
                 # the single-device step's signature: the plain loop
-                # branch drives it
-                make = make_tp_train_step
+                # branch drives it; it runs no windows and no capacity
+                make, kw = make_tp_train_step, {}
             elif self.parallel == "dp":
                 from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
                     make_dp_train_step,
@@ -872,7 +911,6 @@ class GaussianPointCloudTrainer:
                 make = make_dp_train_step
             else:
                 make = make_train_step
-                kw = dict(scan_steps=scan_steps, key_cap=key_cap)
             self._step_cache[key] = make(self.config, h, w,
                                          device=self.device, **kw)
         return self._step_cache[key]
@@ -920,13 +958,16 @@ class GaussianPointCloudTrainer:
                 return 1
         return spd
 
-    def _window_tensors(self, items):
-        """(images (k, H, W, 3) uint8, qs, ts, Ks) of a window's items on
-        the trainer's device. The images are staged as uint8, as the JAX
-        trainer stages them: rint(image * 255) inverts the 8-bit decode
-        (after a downsample it requantizes)."""
-        images = np.rint(np.stack([it.image for it in items])
-                         * 255.0).astype(np.uint8)
+    def _window_tensors(self, items, uint8: bool = True):
+        """(images (k, H, W, 3), qs, ts, Ks) of a window's items on the
+        trainer's device. The single-device window stages its images as
+        uint8, as the JAX trainer does: rint(image * 255) inverts the 8-bit
+        decode (after a downsample it requantizes). The data-parallel
+        dispatches stage f32 (``uint8`` False), as the JAX trainer's
+        do."""
+        images = np.stack([it.image for it in items])
+        images = (np.rint(images * 255.0).astype(np.uint8) if uint8
+                  else images.astype(np.float32))
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -991,19 +1032,22 @@ class GaussianPointCloudTrainer:
 
     # -- main loop ---------------------------------------------------------------
 
-    def _dp_rows(self) -> list:
-        """The global camera indices of the next data-parallel step, one a
-        rank, from the shared-seed stream. Outside ``multihost`` a step
-        whose cameras map to mixed resolutions keeps those of the newest
-        one's and draws more (the JAX trainer's refetch; here decided from
-        metadata, identically on every rank, before any pixel is read)."""
+    def _dp_rows(self, window: int) -> tuple:
+        """(global camera indices, steps) of the next data-parallel
+        dispatch: ``world * window`` indices from the shared-seed stream,
+        step-major (the JAX trainer's ``next_global(per_step * window)``).
+        Outside ``multihost``, a dispatch whose cameras map to mixed
+        resolutions becomes one step on the newest camera's resolution: its
+        last ``world`` cameras of that size, and more drawn while fewer (the
+        JAX trainer's fallback and refetch; here decided from metadata,
+        identically on every rank, before any pixel is read)."""
         world = self.world
-        gidx = self._sampler.next_global(world)
+        gidx = self._sampler.next_global(world * window)
         if self._mh_hw is not None:
-            return gidx
+            return gidx, window
         sizes = [self._record_hw[i] for i in gidx]
         if len(set(sizes)) == 1:
-            return gidx
+            return gidx, window
         target = sizes[-1]
         keep = [i for i, s in zip(gidx, sizes) if s == target][-world:]
         fetched = 0
@@ -1016,28 +1060,32 @@ class GaussianPointCloudTrainer:
                 raise RuntimeError(
                     "could not assemble a uniform-resolution data-parallel "
                     f"batch of {world} at {target[0]}x{target[1]}")
-        return keep
+        return keep, 1
 
-    def _dp_items(self) -> list:
-        """This rank's items of the next data-parallel step; the next
-        step's decode is submitted while this one trains (the stream is
+    def _dp_items(self, window: int, next_window: int) -> tuple:
+        """(this rank's items, steps) of the next data-parallel dispatch of
+        ``window`` steps (``_dp_rows``): one item a step, in step order.
+        The decode of the next dispatch, of ``next_window`` steps (0: none
+        follows), is submitted while this one trains (the stream is
         deterministic, so a peek gives what the next draw returns; a
-        mismatch falls back to a synchronous load)."""
+        mismatch, as after a fallback, is loaded synchronously)."""
         from taichi_3d_gaussian_splatting_tpu_torch.parallel.multihost import (  # noqa: E501
             GlobalShuffleSampler,
         )
 
-        gidx = self._dp_rows()
+        gidx, window = self._dp_rows(window)
         pre, self._prefetch = self._prefetch, None
         if pre is not None and pre[0] == gidx:
             items = [f.result() for f in pre[1]]
         else:
             items = self._loader.load(GlobalShuffleSampler.local_slice(
                 gidx, self.world, 1, self.rank))
-        nxt = self._sampler.peek_global(self.world)
-        self._prefetch = (nxt, self._loader.submit(
-            GlobalShuffleSampler.local_slice(nxt, self.world, 1, self.rank)))
-        return items
+        if next_window:
+            nxt = self._sampler.peek_global(self.world * next_window)
+            self._prefetch = (nxt, self._loader.submit(
+                GlobalShuffleSampler.local_slice(nxt, self.world, 1,
+                                                 self.rank)))
+        return items, window
 
     def train(self) -> TrainState:
         from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
@@ -1109,30 +1157,46 @@ class GaussianPointCloudTrainer:
                         k: v for k, v in self._step_cache.items()
                         if len(k) < 4 or k[3] == 0}
                 sh_band = iteration // config.increase_color_max_sh_band_interval
+                window = self._window_size(iteration)
                 # -1 holds the pose still during the pose warm-up
                 warm_pose = iteration >= config.pose_refinement_warm_up
                 if self.parallel == "dp":
-                    # this rank's cameras of the step (one); the logged
-                    # item is batch row 0 on the main rank
-                    items = self._dp_items()
+                    # this rank's camera of each step of the dispatch; the
+                    # logged item is the last step's batch row 0 (the main
+                    # rank's), whose frame the step's frame stats hold
+                    nxt = iteration + window
+                    items, window = self._dp_items(
+                        window, self._window_size(nxt)
+                        if nxt < config.num_iterations else 0)
                     if downsample_factor > 1:
                         items = [downsample_item(it, downsample_factor, tile)
                                  for it in items]
-                    item = items[0]
+                    item = items[-1]
                     h = item.camera_info.camera_height
                     w = item.camera_info.camera_width
-                    rows = [torch.stack(c) for c in zip(
-                        *(self._item_tensors(it) for it in items))]
-                    idxs = [it.index if warm_pose else -1 for it in items]
-                    state, metrics, frame_stats = self._get_step(h, w)(
-                        state, *rows, sh_band, idxs)
+                    # the JAX trainer's iteration + d // rows_per_step, one
+                    # row a step on each rank
+                    idxs = [it.index if iteration + d
+                            >= config.pose_refinement_warm_up else -1
+                            for d, it in enumerate(items)]
+                    rows = self._window_tensors(items, uint8=False)
+                    if window > 1:
+                        state, stacked, frame_stats = self._get_step(
+                            h, w, window)(
+                                state, *(x[:, None] for x in rows), sh_band,
+                                [[i] for i in idxs])
+                        metrics = self._emit_window_metrics(
+                            stacked, iteration, window, recent_losses)
+                        iteration += window - 1
+                    else:
+                        state, metrics, frame_stats = self._get_step(h, w)(
+                            state, *rows, sh_band, idxs)
                     from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
                         frame_stats_aux,
                     )
 
                     aux = frame_stats_aux(frame_stats)
                 else:
-                    window = self._window_size(iteration)
                     items = [next(data_iter) for _ in range(window)]
                     if downsample_factor > 1:
                         items = [downsample_item(it, downsample_factor, tile)

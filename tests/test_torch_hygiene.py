@@ -149,9 +149,6 @@ TP_REFUSAL = ("tile_parallel_devices composes with neither "
      "tile_parallel training runs one dispatch per step"),
     # a multi-device config outside a process group of its size
     ({"data_parallel_devices": 2}, RuntimeError, "spawns the ranks"),
-    # windows of data-parallel steps are a later slice
-    ({"data_parallel_devices": 2, "steps_per_dispatch": 4},
-     NotImplementedError, "data-parallel windows"),
 ])
 def test_trainer_refuses_unported_options(over, error, match, tmp_path):
     config = dataclasses.replace(
@@ -180,20 +177,6 @@ def test_rasterize_gradients_flow(which):
 def test_rasterizer_config_refuses_deferred_options():
     with pytest.raises(ValueError):
         tr.RasterizerConfig(slim=True, rgb_only=True)
-
-
-@pytest.mark.parametrize("config, scan_steps, match", [
-    (TrainConfig(), 2, "data-parallel windows"),
-])
-def test_train_step_refuses_unported_options(config, scan_steps, match):
-    # the single-device step runs windows; the data-parallel one refuses
-    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
-        make_dp_train_step,
-    )
-
-    with pytest.raises(NotImplementedError, match=match):
-        make_dp_train_step(config, 64, 64, scan_steps=scan_steps,
-                           device="cpu")
 
 
 def test_band_step_refuses_windows():

@@ -419,6 +419,80 @@ def _window_inputs(dev, k=3):
     return gts, qs, ts, Ks
 
 
+def test_window_captures_before_its_constants_reach_the_card(dev):
+    """A window whose warm-up is the first train step on the card (the
+    SSIM window and Adam's bias tables not copied there yet, as in a
+    freshly spawned rank) captures: those constants go over from pinned
+    memory without a host sync, which the warm-up's sync-debug mode
+    "error" would refuse."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training import loss
+
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    inputs = _window_inputs(dev)
+    loss._WINDOWS.clear()
+    trainer._BIAS_TABLES.clear()
+    window = trainer.make_train_step(config, 64, 64, scan_steps=3,
+                                     device=dev, key_cap=4096)
+    got = window(state, *inputs, 3)[0]
+    assert (window.mode, window.captures) == ("graph", 1)
+    assert int(got.feat_opt.count) == 3
+    assert loss._WINDOWS and trainer._BIAS_TABLES
+
+
+def test_dp_window_graph_over_nccl_equals_eager_dp_steps(dev):
+    """make_dp_train_step(scan_steps=3) in a group of one over NCCL (in
+    this process): the window is one CUDA graph holding its collectives,
+    and a replay from a given state ends in the state and losses of three
+    eager capped data-parallel steps, bit for bit; the replayed state is
+    passed back as it is."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
+        make_dp_train_step,
+    )
+
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    gts, qs, ts, Ks = _window_inputs(dev)
+    # one row a step, f32 targets (the trainer stages them so)
+    views = [x[:, None] for x in (gts.float() / 255.0, qs, ts, Ks)]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{mh.free_port()}",
+        world_size=1, rank=0)
+    try:
+        capped = make_dp_train_step(config, 64, 64, device=dev,
+                                    key_cap=4096)
+        eager, losses = state, []
+        for i in range(3):
+            eager, m, _ = capped(eager, *(v[i] for v in views), 3)
+            losses.append(m["loss"])
+        window = make_dp_train_step(config, 64, 64, device=dev,
+                                    scan_steps=3, key_cap=4096)
+        assert window.mode == "graph"
+        window(state, *views, 3)  # warm-up and capture, then a replay
+        got, metrics, _ = window(state, *views, 3)
+        assert (window.captures, len(window.graphs)) == (1, 1)
+        assert [c.op for c in capped.collectives] == ["sum", "max"]
+        torch.testing.assert_close(metrics["loss"], torch.stack(losses),
+                                   rtol=0, atol=0)
+        for x, y in zip(checkpoint.state_leaves(got),
+                        checkpoint.state_leaves(eager)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        again, _, _ = window(got, *views, 3)  # the static state itself
+        assert again.scene.features.data_ptr() == got.scene.features.data_ptr()
+        assert int(again.feat_opt.count) == 6
+    finally:
+        dist.destroy_process_group()
+
+
 def test_window_replays_its_graph_after_a_new_scene_and_a_new_band(dev):
     """The window holds one graph. After a densify-like change (a new scene
     and controller, the optimizer states the graph's own) it replays that

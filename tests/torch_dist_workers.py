@@ -80,8 +80,9 @@ def dp_case(name):
 DP_CASES = ("identical", "different", "pose_rows", "duplicate")
 
 
-def port_config(pose=False):
-    """tests/test_parallel.py::make_config for the port."""
+def port_config(pose=False, **rcfg):
+    """tests/test_parallel.py::make_config for the port; ``rcfg``: other
+    rasterizer fields (tile_size 32 by default)."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
         RasterizerConfig,
     )
@@ -93,7 +94,8 @@ def port_config(pose=False):
     )
 
     config = TrainConfig(
-        rasterisation_config=RasterizerConfig(tile_size=32),
+        rasterisation_config=RasterizerConfig(**dict(dict(tile_size=32),
+                                                     **rcfg)),
         loss_function_config=LossConfig(enable_regularization=False),
         feature_learning_rate=1e-2)
     if pose:
@@ -162,6 +164,152 @@ def dp_ranks():
             "frame_stats": {k: _np(v) for k, v in fs.items()},
             "collectives": [(c.op, c.numel) for c in step.collectives],
         }
+    return out
+
+
+# --- data-parallel windows -------------------------------------------------
+
+# 32x8 tiles (a shape of tests/test_rasterizer.py:426): the window views
+# carry 165-177 keys each, so a capacity of 128 lies below every total and
+# 256 above (the JAX blend takes multiples of 128)
+WIN_TILE = dict(tile_size=32, tile_h=8)
+WIN_CAPS = (256, 128)
+WIN_CASES = ("window", "pose_window")
+WIN_STEPS = 2
+
+
+def win_case(name):
+    """The inputs of a window case of tests/test_parallel.py: two steps of
+    two cameras, (scene seed, the 4 images and translations in (step,
+    row) order, the rows' view indices or None, pose refinement on).
+    ``pose_window`` (:351) starts with a -1 row, as the warm-up does."""
+    if name == "window":             # :139
+        rng = np.random.default_rng(5)
+        ts = [np.zeros(3, np.float32), T_B,
+              np.asarray([-0.1, 0.05, 0.1], np.float32),
+              np.zeros(3, np.float32)]
+        return 7, [rng.random((HW, HW, 3)).astype(np.float32)
+                   for _ in range(4)], ts, None, False
+    if name == "pose_window":        # :351
+        rng = np.random.default_rng(8)
+        return 21, [rng.random((HW, HW, 3)).astype(np.float32)
+                    for _ in range(4)], [np.zeros(3, np.float32)] * 4, \
+            [-1, 1, 1, 0], True
+    raise KeyError(name)
+
+
+def win_inputs(name, rows, device="cpu"):
+    """(images, qs, ts, Ks (WIN_STEPS, len(rows), ...), idxs or None) of a
+    window case: each step's batch rows ``rows``."""
+    _, imgs, ts, idx, _ = win_case(name)
+
+    def take(a):
+        return torch.from_numpy(np.stack(
+            [np.stack([np.asarray(a[2 * s + r], np.float32) for r in rows])
+             for s in range(WIN_STEPS)])).to(device)
+    idxs = None if idx is None else [[idx[2 * s + r] for r in rows]
+                                     for s in range(WIN_STEPS)]
+    return (take(imgs), take([Q_ID] * 4), take(ts), take([K32] * 4), idxs)
+
+
+def leaves_equal(a, b) -> bool:
+    from taichi_3d_gaussian_splatting_tpu_torch.training.checkpoint import (
+        state_leaves,
+    )
+
+    return all(torch.equal(x, y)
+               for x, y in zip(state_leaves(a), state_leaves(b)))
+
+
+def dp_window_cases():
+    """Each window case at each capacity on this rank's row of every step:
+    the window, and its steps as eager capped data-parallel steps."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    out = {}
+    for name in WIN_CASES:
+        for cap in WIN_CAPS:
+            seed, _, _, _, pose = win_case(name)
+            config = port_config(pose, key_cap=cap, **WIN_TILE)
+            xyz, feats = dp_scene(seed=seed)
+            state = mh.broadcast_tree(
+                port_state(config, xyz, feats, 2 if pose else 0))
+            *views, idxs = win_inputs(name, [mh.rank()])
+            window = make_dp_train_step(config, HW, HW, device="cpu",
+                                        scan_steps=WIN_STEPS)
+            new, stacked, fs = window(state, *views, 3, idxs)
+            capped = make_dp_train_step(config, HW, HW, device="cpu",
+                                        key_cap=cap)
+            eager, rows = state, []
+            for k in range(WIN_STEPS):
+                eager, m, efs = capped(eager, *(v[k] for v in views), 3,
+                                       None if idxs is None else idxs[k])
+                rows.append(m)
+            out[(name, cap)] = {
+                "mode": window.mode, "state": state_np(new),
+                "metrics": {k: v.numpy() for k, v in stacked.items()},
+                "in_camera": fs["in_camera"].numpy(),
+                "eager_equal": leaves_equal(new, eager) and all(
+                    torch.equal(stacked[k], torch.stack([m[k] for m in rows]))
+                    for k in stacked) and all(
+                        torch.equal(fs[k], efs[k]) for k in fs),
+            }
+    return out
+
+
+def _train_run(config_dict):
+    """One data-parallel train() on this rank: the final state's leaves,
+    this rank's camera indices of each dispatch, (iteration, steps) of
+    each dispatch, and the key-capacity refits."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training.checkpoint import (
+        state_leaves,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        from_dict,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
+        GaussianPointCloudTrainer,
+    )
+
+    trainer = GaussianPointCloudTrainer(from_dict(config_dict), device="cpu")
+    draws, refits = [], []
+    dp_items, rebucket = trainer._dp_items, trainer._maybe_rebucket_key_cap
+
+    def recorded_items(window, next_window):
+        items, steps = dp_items(window, next_window)
+        draws.append((steps, [it.index for it in items]))
+        return items, steps
+
+    def recorded_rebucket(num_keys):
+        refits.append((num_keys, trainer._key_cap))
+        return rebucket(num_keys)
+
+    trainer._dp_items = recorded_items
+    trainer._maybe_rebucket_key_cap = recorded_rebucket
+    state = trainer.train()
+    if trainer.writer is not None:
+        trainer.writer.close()  # before the rank exits (apps/train.py)
+    caches = sorted(trainer._step_cache)
+    return {"leaves": [t.numpy().copy() for t in state_leaves(state)],
+            "draws": draws, "refits": refits, "key_cap": trainer._key_cap,
+            "step_cache": caches}
+
+
+def dp_window_ranks(runs: dict):
+    """``dp_window_cases`` and the data-parallel train() runs of ``runs``
+    ({name: config dict}) on this rank."""
+    import contextlib
+    import io
+
+    out = {"cases": dp_window_cases()}
+    for name, config_dict in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[name] = _train_run(config_dict)
     return out
 
 
