@@ -167,7 +167,13 @@ yardstick of their redesign), then:
    loop with ``multihost`` in the group of one over NCCL (windows,
    captures, one graph held, the refit, ms an iteration, the resume), and
    a 20-iteration cut of it with ``data_parallel_devices: 2`` on the two
-   gloo ranks, whose final states are bit-identical.
+   gloo ranks, whose final states are bit-identical; (d) the release, last
+   in the NCCL group of one, with 15a's window kept alive through (c): the
+   windows ``multihost`` tracks hold it, ``multihost.shutdown()`` releases
+   every one before the group goes (nothing in the phase releases one),
+   and the card's reserved memory falls by at least what 15a's window
+   held. The memory of 14e is read without the cyclic collector: a
+   window the trainer drops frees its graph at once.
 
 Each path's launch counts are set to 0 just before it and read just after
 (in phases 10-13 and 15 by each rank, in its own process).
@@ -1171,10 +1177,12 @@ class MemoryViews:
         return self.items[i]
 
 
-def loop_views(K_np, dev, count=8):
-    """``count`` DatasetItems at 960x544, rendered at ``poses(count)`` from
-    a second seeded scene and quantized to 8 bits as a PNG decode gives
-    them (uint8 / 255 in f32)."""
+def loop_views(K_np, dev, count=8, points=N_POINTS, width=WIDTH,
+               height=HEIGHT):
+    """``count`` DatasetItems at ``width`` x ``height`` (960x544),
+    rendered at ``poses(count)`` from a second seeded scene of ``points``
+    and quantized to 8 bits as a PNG decode gives them (uint8 / 255 in
+    f32)."""
     from taichi_3d_gaussian_splatting_tpu_torch.data.camera import CameraInfo
     from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
         DatasetItem,
@@ -1185,11 +1193,11 @@ def loop_views(K_np, dev, count=8):
     )
 
     put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    xyz_t, feats_t = truck_scene_surround(N_POINTS, seed=1)
+    xyz_t, feats_t = truck_scene_surround(points, seed=1)
     xyz_t, feats_t = put(xyz_t), put(feats_t)
-    invalid = torch.zeros(N_POINTS, dtype=torch.bool, device=dev)
+    invalid = torch.zeros(points, dtype=torch.bool, device=dev)
     qs, ts = se3_to_qt(put(poses(count)))
-    cam = R.Camera(put(K_np), WIDTH, HEIGHT)
+    cam = R.Camera(put(K_np), width, height)
     cfg = R.RasterizerConfig(rgb_only=True, tile_size=TILE)
     items = []
     for i in range(count):
@@ -1199,16 +1207,12 @@ def loop_views(K_np, dev, count=8):
             image=u8.cpu().numpy().astype(np.float32) / 255.0,
             q_pointcloud_camera=qs[i].cpu().numpy(),
             t_pointcloud_camera=ts[i].cpu().numpy(),
-            camera_info=CameraInfo(K_np.copy(), HEIGHT, WIDTH, 0), index=i))
+            camera_info=CameraInfo(K_np.copy(), height, width, 0), index=i))
     return items
 
 
-def loop_config(log_dir: str, **over):
-    """The loop's schedule, built without YAML."""
-    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
-        from_dict,
-    )
-
+def loop_config_dict(log_dir: str, **over) -> dict:
+    """The loop's schedule as the fields of a config file."""
     d = {
         "num_iterations": LOOP_ITERS, "val_interval": 20,
         "initial_downsample_factor": 2, "half_downsample_factor_interval": 20,
@@ -1227,7 +1231,16 @@ def loop_config(log_dir: str, **over):
         "gaussian_point_cloud_scene_config": {"max_num_points_ratio": 1.25},
     }
     d.update(over)
-    return from_dict(d)
+    return d
+
+
+def loop_config(log_dir: str, **over):
+    """The loop's schedule, built without YAML."""
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        from_dict,
+    )
+
+    return from_dict(loop_config_dict(log_dir, **over))
 
 
 def loop_trainer_class(train_items, val_items, xyz, feats, saved_as):
@@ -2686,7 +2699,7 @@ def record_windows(trainer, memory: bool = False) -> list:
     get_step = trainer._get_step
 
     def held_gib():
-        gc.collect()  # garbage of earlier phases' cycles, freed now
+        # no collector: a window the trainer drops frees its graph at once
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         return torch.cuda.memory_reserved() / 2 ** 30
@@ -2909,7 +2922,9 @@ def dp_window_nccl(setup, loop_ms) -> dict:
     single-device window and WINDOW eager capped data-parallel steps from
     the same state on the same f32 targets, its replays timed and traced;
     phase 10a's eager step timed; then phase 14d's loop with
-    ``multihost`` (this process is the group's one rank)."""
+    ``multihost`` (this process is the group's one rank); last, (d): the
+    group left through ``multihost.shutdown()`` with 15a's window alive
+    (``release_check``)."""
     import torch.distributed as dist
 
     from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
@@ -2961,6 +2976,9 @@ def dp_window_nccl(setup, loop_ms) -> dict:
     reserved0 = torch.cuda.memory_reserved()
     (got, wm, fs), first_ms = synced_ms(window, start, *rows, band)
     pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    torch.cuda.empty_cache()
+    # what the window itself holds: its pool, static buffers and outputs
+    held_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
     same1 = same(got, wm["loss"])
     again, wm2, _ = window(start, *rows, band)  # replayed from the start
     same2 = same(again, wm2["loss"])
@@ -2978,11 +2996,12 @@ def dp_window_nccl(setup, loop_ms) -> dict:
          "replay_equal": same2, "losses": [float(v) for v in wm["loss"]],
          "finite_frame": bool(torch.isfinite(fs["pred"]).all()),
          "first_call_ms": first_ms, "capture_s": graph.capture_s,
-         "pool_gib": pool_gib, "ms_per_step": window_ms,
+         "pool_gib": pool_gib, "held_gib": held_gib,
+         "ms_per_step": window_ms,
          "device_ms_per_step": busy["device_busy_ms"] / 3 / WINDOW,
          "profile": busy, "launches": launches, "collectives": collectives}
-    del window, graph, got, again, state, fs
-    gc.collect()
+    # the window stays alive (tracked) through 15c, for the release of 15d
+    del got, again, state, fs, wm, wm2
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3002,7 +3021,36 @@ def dp_window_nccl(setup, loop_ms) -> dict:
     loop = run_window_loop(xyz, feats_l, full_K_np(), loop_ms, dev,
                            label="(c) NCCL, one rank,", multihost=True)
     loop["seconds"] = time.perf_counter() - t0
-    return {"a": a, "c": loop}
+    return {"a": a, "c": loop, "d": release_check(window, graph)}
+
+
+def release_check(window, graph) -> dict:
+    """Phase 15 (d), the last work in the NCCL group of one: the windows
+    ``multihost`` tracks hold 15a's live window (``graph``, held by
+    ``window``); ``multihost.shutdown()`` releases every one of them before
+    the group goes, with no release here, and the card's reserved memory
+    falls by at least what 15a's window held."""
+    import torch.distributed as dist
+
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    tracked = mh.live_windows()
+    d = {"tracked_before": len(tracked),
+         "holds_15a": any(w is graph for w in tracked)}
+    del tracked, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    mh.shutdown()
+    torch.cuda.empty_cache()
+    d.update(tracked_after=len(mh.live_windows()),
+             group_left=not dist.is_initialized(),
+             window_graphs_reset=all(g.graph is None
+                                     for g in window.graphs.values()),
+             freed_gib=(before - torch.cuda.memory_reserved()) / 2 ** 30)
+    return d
 
 
 def dp_window_gloo(setup, cap: int, ref_path: str) -> dict:
@@ -3146,6 +3194,7 @@ def check_dp_windows(res: dict, ref14: dict) -> dict:
         if n != WINDOW * len(WINDOW_SYMBOLS[name]):
             raise AssertionError(f"15a {name}: {n} launches in a window of "
                                  f"{WINDOW} steps")
+    d = res["nccl"]["d"]
     wins = loop["window_loop_windows"]
     print(f"  (c) NCCL, one rank: {loop['window_loop_ms_per_iteration']:.2f}"
           f" ms an iteration over train() (phase 14d: "
@@ -3160,6 +3209,18 @@ def check_dp_windows(res: dict, ref14: dict) -> dict:
             or not loop["window_loop_resume_equal"]):
         raise AssertionError(f"15c (NCCL): windows, captures or the resume:"
                              f" {loop}")
+    print(f"  (d) NCCL, one rank, the release: windows tracked after 15a "
+          f"and 15c {d['tracked_before']} (15a's among them "
+          f"{d['holds_15a']}); after shutdown() {d['tracked_after']}, the "
+          f"group left {d['group_left']}, 15a's graph reset "
+          f"{d['window_graphs_reset']}; reserved memory fell by "
+          f"{d['freed_gib']:.3f} GiB (15a's window held {a['held_gib']:.3f}"
+          f" after empty_cache, its pool {a['pool_gib']:.3f})", flush=True)
+    if not (d["holds_15a"] and d["tracked_after"] == 0 and d["group_left"]
+            and d["window_graphs_reset"]
+            and d["freed_gib"] >= a["held_gib"]):
+        raise AssertionError(f"15d: shutdown() did not release the live "
+                             f"windows: {d}")
 
     b = [r["b"] for r in res["gloo"]]
     gl = [r["loop"] for r in res["gloo"]]
@@ -3196,6 +3257,7 @@ def check_dp_windows(res: dict, ref14: dict) -> dict:
     for x in b:
         x.pop("digest")
     return {"dp_window_nccl": a, "dp_window_nccl_loop": loop,
+            "dp_window_nccl_release": d,
             "dp_window_gloo": b, "dp_window_gloo_loop": gl}
 
 
@@ -3486,7 +3548,8 @@ def main(argv=None) -> int:
     # counts its own launches (gloo) or reads them from its trace of
     # replays (NCCL)
     phase("phase 15: data-parallel windows at full width (one CUDA graph a "
-          "window in an NCCL group of one, eager over gloo)")
+          "window in an NCCL group of one, eager over gloo; the release at "
+          "the group's end)")
     dpw = check_dp_windows(multi.pop("dp_windows"), windowed)
 
     # bounds: each input read once, each output written once, and the

@@ -27,10 +27,10 @@ batch (``mh_smoke.single_process_reference`` runs it so).
 Windows (``scan_steps``, the JAX step's ``lax.scan`` inside ``shard_map``):
 k capped steps a call, each with its collectives, through the
 single-device step's window machinery (``training.trainer.make_window``):
-one CUDA graph a window with no process group or in an NCCL group of one,
-the steps in a loop over gloo, in an NCCL group of several ranks and on the
-CPU. The capped step reads no host value (the
-key total, the pose rows and their masked scatter stay on the device).
+one CUDA graph a window with no process group or in an NCCL group of any
+size, the steps in a loop over gloo and on the CPU. The capped step reads
+no host value (the key total, the pose rows and their masked scatter stay
+on the device).
 """
 from __future__ import annotations
 
@@ -98,9 +98,10 @@ def make_dp_train_step(config: TrainConfig, height: int, width: int,
     step)``: k capped steps (``key_cap``, else
     ``rasterisation_config.key_cap``), with their collectives, as
     ``training.trainer.make_train_step``'s window runs them. With no
-    process group or in an NCCL group of one a window is one CUDA graph on
-    a card; over gloo, in an NCCL group of several ranks and on the CPU
-    its steps run eagerly in order (``windowed.mode``)."""
+    process group or in an NCCL group a window is one CUDA graph on a
+    card, released by ``multihost.shutdown`` before the group goes; over
+    gloo and on the CPU its steps run eagerly in order
+    (``windowed.mode``)."""
     if scan_steps > 0 and key_cap is None:
         key_cap = config.rasterisation_config.key_cap
     rcfg = train_rasterizer_config(config)

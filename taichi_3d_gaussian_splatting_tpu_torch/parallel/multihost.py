@@ -27,7 +27,11 @@ devices is a process group of N ranks:
   same seed) and decodes only its own rows (``local_slice``,
   ``ThreadedIndexLoader``); the state is replicated by a broadcast from
   rank 0 (``broadcast_tree``), where the JAX package assembles global
-  arrays.
+  arrays;
+- ``shutdown`` is the one way out of the group: it first releases every
+  captured window of steps still alive (``track_window``), whose CUDA graph
+  holds the group's collectives, then syncs the card, meets the other ranks
+  at a barrier and destroys the group.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import datetime
 import os
 import socket
 import traceback
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence
 
@@ -125,11 +130,39 @@ def initialize(coordinator_address: Optional[str] = None,
     return dist.get_backend()
 
 
+# the captured windows alive in this process's group, held weakly: a
+# window's graph holds the group's collectives, and NCCL keeps its
+# communicator for each graph that captured them until the graph goes
+_LIVE_WINDOWS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_window(window) -> None:
+    """Keep ``window`` (an object with ``release()``) for ``shutdown`` to
+    release before the group goes."""
+    _LIVE_WINDOWS.add(window)
+
+
+def untrack_window(window) -> None:
+    _LIVE_WINDOWS.discard(window)
+
+
+def live_windows() -> list:
+    """The tracked windows still alive and not released."""
+    return list(_LIVE_WINDOWS)
+
+
 def shutdown() -> None:
     """Leave the process group, once every rank has reached this point (a
     rank that exits while a peer still talks to it, or with the group's
-    threads running, can abort the process)."""
+    threads running, can abort the process). Every live captured window
+    is released first and the card synced: ``destroy_process_group`` waits
+    on a communicator that a live graph still holds. Every rank reaches
+    this point together, so no peer still replays a graph released here."""
     if dist.is_initialized():
+        for window in live_windows():
+            window.release()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dist.barrier()
         dist.destroy_process_group()
 

@@ -3,8 +3,8 @@
 Port of ``taichi_3d_gaussian_splatting_tpu/training/config.py``: kebab-case
 and snake_case keys both accepted, unknown keys tolerated, and YAML 1.1
 scalars coerced to the field's type (``1e-5`` parses as a string there).
-PyYAML is imported by ``load_config`` and ``save_template`` alone: nothing
-else here needs it.
+PyYAML is imported by ``load_config`` (for a file not named ``.json``) and
+``save_template`` alone: nothing else here needs it.
 """
 from __future__ import annotations
 
@@ -121,10 +121,18 @@ _NESTED = {
 
 
 def load_config(path: str) -> TrainConfig:
-    import yaml
+    """The config of a YAML file, or of a ``.json`` file (JSON is YAML too;
+    it is read with the standard library, where PyYAML is missing)."""
+    if str(path).endswith(".json"):
+        import json
 
-    with open(path) as f:
-        data = yaml.safe_load(f)
+        with open(path) as f:
+            data = json.load(f)
+    else:
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f)
     return _from_dict(TrainConfig, data)
 
 

@@ -30,8 +30,8 @@ call, the JAX package's ``lax.scan`` window (``make_window``, which the
 data-parallel window shares). On a card the k steps are one
 ``torch.cuda.CUDAGraph``, captured after one eager warm-up and replayed
 each call, so the state lives in the graph's static buffers between
-windows; on the CPU, over gloo and in an NCCL group of several ranks they
-run in a loop (``window_mode``).
+windows, in an NCCL process group of any size too; on the CPU and over
+gloo they run in a loop (``window_mode``).
 
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
 the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``. Its update
@@ -123,7 +123,7 @@ class TrainState(NamedTuple):
     pose_opt: Optional[dict] = None
 
 
-def init_pose_opt(num_images: int, device="cpu") -> dict:
+def init_pose_opt(num_images: int, device="cuda") -> dict:
     """Per-row sparse-Adam state of the pose deltas: ``mu``, ``nu`` (each
     (num_images, 6)) and each row's update ``count`` ((num_images,) f32)."""
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
@@ -549,16 +549,16 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
 def window_mode(dev: torch.device) -> str:
     """How a window of steps runs on ``dev``, decided here alone: "graph"
     (the k steps one ``torch.cuda.CUDAGraph``) on a card with no process
-    group or in an NCCL group of one; "eager" (the steps in a loop) on the
-    CPU, over gloo, which copies CUDA buffers through the host, where no
-    graph can follow, and in an NCCL group of several ranks, whose capture
-    has not yet been seen to complete on the card (ROADMAP C)."""
+    group or in an NCCL group of any size; "eager" (the steps in a loop) on
+    the CPU and over gloo, which copies CUDA buffers through the host,
+    where no graph can follow. It reads only what every rank shares (the
+    device type and the backend): a capture on one rank against a loop on
+    another would deadlock."""
     import torch.distributed as dist
 
     if dev.type != "cuda":
         return "eager"
-    if dist.is_initialized() and (dist.get_backend() != "nccl"
-                                  or dist.get_world_size() > 1):
+    if dist.is_initialized() and dist.get_backend() != "nccl":
         return "eager"
     return "graph"
 
@@ -576,12 +576,14 @@ class _CapturedWindow:
     k steps in place. A failed capture raises; there is no eager
     fallback.
 
-    In a process group (an NCCL group of one: ``window_mode``) the steps'
-    collectives are captured with them. The communicator is warmed by one
-    eager collective first, and the capture is "thread_local": the process
-    group's watchdog thread queries the events of earlier collectives,
-    which the default "global" mode forbids to every thread while a
-    capture runs."""
+    In an NCCL process group (``window_mode``) the steps' collectives are
+    captured with them. The communicator is warmed by one eager collective
+    first, and the capture is "thread_local": the process group's watchdog
+    thread queries the events of earlier collectives, which the default
+    "global" mode forbids to every thread while a capture runs. Such a
+    window is tracked (``multihost.track_window``): ``multihost.shutdown``
+    releases it before the group goes. ``release`` frees the graph and
+    its pool at once, wherever it is called."""
 
     def __init__(self, run, state: TrainState, inputs: tuple, sh_band):
         import torch.distributed as dist
@@ -613,6 +615,8 @@ class _CapturedWindow:
                 self.state, *self.inputs, sh_band)
             _tree_map(_copy_in, self.state, new_state)
         self.capture_s = time.perf_counter() - t0
+        if dist.is_initialized():
+            mh.track_window(self)
 
     def __call__(self, state: TrainState, inputs: tuple):
         for dst, src in zip(self.inputs, inputs):
@@ -624,6 +628,79 @@ class _CapturedWindow:
         return (self.state, {k: v.clone() for k, v in self.metrics.items()},
                 self.aux)
 
+    def release(self) -> None:
+        """Reset the graph and drop the static inputs, state, metrics and
+        aux, so that the graph's private pool goes back to the allocator
+        once no caller holds a returned tensor; a second call does
+        nothing. The window cannot replay afterwards."""
+        from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+            multihost as mh,
+        )
+
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.inputs = self.state = self.metrics = self.aux = None
+        mh.untrack_window(self)
+
+
+class _Window:
+    """``make_window``'s window: ``window(state, images, qs, ts, Ks,
+    sh_band, img_idxs=None)``. ``mode`` ("graph" or "eager", settable) is
+    ``window_mode``'s; ``graphs`` holds the one ``_CapturedWindow`` of the
+    last call's (sh_band, capacity, dtype, pose rows), ``captures`` counts
+    them; a call after the graph was released captures it anew. Nothing in
+    it refers back to the window, so a window dropped from a cache frees
+    its graph at once, without the cyclic collector."""
+
+    def __init__(self, step, k: int, dev: torch.device, pose_refine: bool):
+        self.step, self.k, self.dev = step, k, dev
+        self.pose_refine = pose_refine
+        self.mode = window_mode(dev)
+        self.graphs = {}
+        self.captures = 0
+
+    def run(self, state, images, qs, ts, Ks, idxs, sh_band):
+        rows = []
+        aux = None
+        for i in range(self.k):
+            extra = () if idxs is None else (idxs[i],)
+            state, m, aux = self.step(state, images[i], qs[i], ts[i], Ks[i],
+                                      sh_band, *extra)
+            rows.append(m)
+        return state, {name: torch.stack([m[name] for m in rows])
+                       for name in rows[0]}, aux
+
+    def __call__(self, state: TrainState, images, qs, ts, Ks, sh_band,
+                 img_idxs=None):
+        if images.shape[0] != self.k:
+            raise ValueError(f"a window of {self.k} steps got "
+                             f"{images.shape[0]} images")
+        idxs = None
+        if self.pose_refine:
+            rows = images.shape[:-3]  # (k,) or (k, B_local)
+            idxs = (torch.full(rows, -1, dtype=torch.int64, device=self.dev)
+                    if img_idxs is None else torch.as_tensor(
+                        img_idxs, dtype=torch.int64, device=self.dev).reshape(
+                            rows))
+        inputs = (images, qs, ts, Ks, idxs)
+        if self.mode == "eager":
+            return self.run(state, *inputs, sh_band)
+        key = (int(sh_band), state.scene.capacity, images.dtype,
+               None if idxs is None else state.pose_deltas.shape[0])
+        graph = self.graphs.get(key)
+        if graph is None or graph.graph is None:  # none yet, or released
+            # one graph at a time: its pool, state and inputs go before
+            # the next is captured (the trainer's SH band only grows); the
+            # key is the same on every rank, so the ranks release together
+            for old in self.graphs.values():
+                old.release()
+            self.graphs = {}
+            graph = self.graphs[key] = _CapturedWindow(
+                self.run, state, inputs, sh_band)
+            self.captures += 1
+        return graph(state, inputs)
+
 
 def make_window(step, k: int, dev: torch.device, pose_refine: bool):
     """The window of k steps of ``step`` (a capped step: the single-device
@@ -632,49 +709,7 @@ def make_window(step, k: int, dev: torch.device, pose_refine: bool):
     ``windowed(state, images, qs, ts, Ks, sh_band, img_idxs=None)``, each
     input stacked (k, ...) over the step's own, the pose indices (k,) or
     (k, B_local). ``windowed.mode`` is ``window_mode(dev)``."""
-
-    def run(state, images, qs, ts, Ks, idxs, sh_band):
-        rows = []
-        aux = None
-        for i in range(k):
-            extra = () if idxs is None else (idxs[i],)
-            state, m, aux = step(state, images[i], qs[i], ts[i], Ks[i],
-                                 sh_band, *extra)
-            rows.append(m)
-        return state, {name: torch.stack([m[name] for m in rows])
-                       for name in rows[0]}, aux
-
-    def windowed(state: TrainState, images, qs, ts, Ks, sh_band,
-                 img_idxs=None):
-        if images.shape[0] != k:
-            raise ValueError(f"a window of {k} steps got {images.shape[0]} "
-                             "images")
-        idxs = None
-        if pose_refine:
-            rows = images.shape[:-3]  # (k,) or (k, B_local)
-            idxs = (torch.full(rows, -1, dtype=torch.int64, device=dev)
-                    if img_idxs is None else torch.as_tensor(
-                        img_idxs, dtype=torch.int64, device=dev).reshape(
-                            rows))
-        inputs = (images, qs, ts, Ks, idxs)
-        if windowed.mode == "eager":
-            return run(state, *inputs, sh_band)
-        key = (int(sh_band), state.scene.capacity, images.dtype,
-               None if idxs is None else state.pose_deltas.shape[0])
-        graph = windowed.graphs.get(key)
-        if graph is None:
-            # one graph at a time: its pool, state and inputs go before
-            # the next is captured (the trainer's SH band only grows)
-            windowed.graphs.clear()
-            graph = windowed.graphs[key] = _CapturedWindow(
-                run, state, inputs, sh_band)
-            windowed.captures += 1
-        return graph(state, inputs)
-
-    windowed.mode = window_mode(dev)
-    windowed.graphs = {}
-    windowed.captures = 0
-    return windowed
+    return _Window(step, k, dev, pose_refine)
 
 
 def make_densify_step(config: TrainConfig):

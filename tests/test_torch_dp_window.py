@@ -246,6 +246,70 @@ def test_replicated_jax_start_state_converts_to_the_ranks(name):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def world4():
+    """``dp_window4_ranks`` on four gloo ranks, run in a thread while JAX
+    runs the same windows on four devices of the CPU mesh."""
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(W.spawn_ranks, W.dp_window4_ranks, W.WIN4_WORLD)
+        mesh = jdp.make_mesh(W.WIN4_WORLD)
+        arrays = tuple(jnp.asarray(v.numpy())
+                       for v in W.win4_inputs(range(W.WIN4_WORLD)))
+        sharded = jdp.shard_batch(mesh, *arrays, batch_axis=1)
+        xyz, feats = W.dp_scene(seed=W.win_case("window")[0])
+        jax_runs = {}
+        for cap in W.WIN4_CAPS:
+            config = dataclasses.replace(_jax_config(False),
+                                         rasterisation_config=(
+                                             JRasterizerConfig(
+                                                 key_cap=cap, interpret=True,
+                                                 **W.WIN_TILE)))
+            state = jdp.replicate(mesh, _jax_state(config, xyz, feats, False))
+            window = jdp.make_dp_train_step(config, W.HW, W.HW, mesh,
+                                            scan_steps=W.WIN_STEPS)[0]
+            new, metrics, fs = window(state, *sharded,
+                                      jnp.asarray(3, jnp.int32))
+            jax_runs[cap] = {
+                "state": {"features": np.asarray(new.scene.features),
+                          "xyz": np.asarray(new.scene.xyz),
+                          "feat_mu": np.asarray(new.feat_opt[0].mu),
+                          "pos_mu": np.asarray(new.pos_opt[0].mu),
+                          "ctrl_num_in_camera": np.asarray(
+                              new.ctrl.num_in_camera)},
+                "metrics": {k: np.asarray(v) for k, v in metrics.items()},
+                "in_camera": np.asarray(fs["in_camera"])}
+        return ranks.result(), jax_runs
+
+
+@pytest.mark.parametrize("cap", W.WIN4_CAPS)
+def test_window_of_four_ranks_matches_jax(world4, cap):
+    """A window of 2 steps on four gloo ranks, a camera each a step,
+    against JAX's ``make_dp_train_step(scan_steps=2)`` on four devices of
+    the CPU mesh, at a capacity above and below the views' key totals, in
+    the gates of the two-rank cases; the four ranks bit-identical."""
+    port, jax_runs = world4
+    got, want = port[0][cap], jax_runs[cap]
+    assert (got["mode"], got["world"]) == ("eager", W.WIN4_WORLD)
+    for k in ("loss", "l1", "ssim", "psnr"):
+        assert got["metrics"][k].shape == (W.WIN_STEPS,)
+        np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
+                                   rtol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(got["metrics"]["num_keys"],
+                                  want["metrics"]["num_keys"])
+    assert (got["metrics"]["num_keys"] > cap).any() == (cap < 165)
+    for k in ("feat_mu", "pos_mu"):
+        assert np.abs(got["state"][k]).max() > 0, k
+        np.testing.assert_allclose(got["state"][k] / (1 - B1),
+                                   want["state"][k] / (1 - B1), **GATE)
+    _close_params(got["state"], want["state"], W.WIN_STEPS)
+    np.testing.assert_array_equal(got["state"]["ctrl_num_in_camera"],
+                                  want["state"]["ctrl_num_in_camera"])
+    np.testing.assert_array_equal(got["in_camera"], want["in_camera"])
+    for other in port[1:]:
+        for k in got["state"]:
+            assert np.array_equal(got["state"][k], other[cap]["state"][k]), k
+
+
 def _jax_draw(config_dict, num_items, res, world=2):
     """The JAX trainer's data-parallel draw (trainer.py:775-839, outside
     multihost): (steps, global indices) of each dispatch, from its loader's
@@ -335,14 +399,13 @@ def test_trainer_ranks_agree_and_windows_end_where_single_steps_end(runs):
     ("cpu", "gloo", 2, "eager"),
     ("cuda", None, 1, "graph"),
     ("cuda", "nccl", 1, "graph"),
-    ("cuda", "nccl", 4, "eager"),
+    ("cuda", "nccl", 4, "graph"),
     ("cuda", "gloo", 2, "eager"),
 ])
 def test_window_mode_follows_the_backend(monkeypatch, dev, backend, world,
                                          mode):
     """The one rule of how a window runs: a graph on a card with no group
-    or in an NCCL group of one; eager on the CPU, over gloo, and in an
-    NCCL group of several ranks (its capture is not known to complete)."""
+    or in an NCCL group of any size; eager on the CPU and over gloo."""
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "is_initialized", lambda: backend is not None)

@@ -489,8 +489,50 @@ def test_dp_window_graph_over_nccl_equals_eager_dp_steps(dev):
         again, _, _ = window(got, *views, 3)  # the static state itself
         assert again.scene.features.data_ptr() == got.scene.features.data_ptr()
         assert int(again.feat_opt.count) == 6
+        assert mh.live_windows() == list(window.graphs.values())
     finally:
-        dist.destroy_process_group()
+        mh.shutdown()  # releases the window's graph before the group goes
+    assert not dist.is_initialized() and mh.live_windows() == []
+    assert all(g.graph is None for g in window.graphs.values())
+
+
+def test_window_release_returns_its_pool_and_a_recapture_is_the_first(dev):
+    """``_CapturedWindow.release()`` resets the graph and drops its static
+    buffers: the card's reserved memory falls by at least nine tenths of
+    what the window held (its pool, inputs and state); a second release
+    does nothing; the window's next call captures anew and ends bit for
+    bit where the first capture's call ended."""
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    inputs = _window_inputs(dev)
+    cap = 2 ** 18  # key buffers of tens of MB: a pool that shows
+    capped = trainer.make_train_step(config, 64, 64, device=dev, key_cap=cap)
+    capped(state, *(x[0] for x in inputs), 3)  # the card's constants
+    window = trainer.make_train_step(config, 64, 64, scan_steps=3,
+                                     device=dev, key_cap=cap)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    got = window(state, *inputs, 3)[0]
+    first = [t.cpu() for t in checkpoint.state_leaves(got)]
+    del got
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    (graph,) = window.graphs.values()
+    graph.release()
+    graph.release()
+    assert graph.graph is None and graph.state is None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert held - before > 2 ** 20
+    assert held - after >= 0.9 * (held - before)
+    again = window(state, *inputs, 3)[0]
+    assert window.captures == 2
+    for x, y in zip(checkpoint.state_leaves(again), first):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
 
 
 def test_window_replays_its_graph_after_a_new_scene_and_a_new_band(dev):

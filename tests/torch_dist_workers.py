@@ -262,6 +262,54 @@ def dp_window_cases():
     return out
 
 
+WIN4_WORLD = 4
+WIN4_CAPS = (256, 128)
+
+
+def win4_inputs(rows, device="cpu"):
+    """A window of WIN_STEPS steps of four cameras (seeded images, moved
+    cameras), view 4s + r at step s, batch row r: (images, qs, ts, Ks),
+    each (WIN_STEPS, len(rows), ...), of the batch rows ``rows``."""
+    rng = np.random.default_rng(13)
+    count = WIN_STEPS * WIN4_WORLD
+    imgs = [rng.random((HW, HW, 3)).astype(np.float32) for _ in range(count)]
+    ts = [np.asarray([0.04 * (i % 4) - 0.06, 0.03 * (i // 4) - 0.02,
+                      0.05 * (i % 3) - 0.05], np.float32)
+          for i in range(count)]
+
+    def take(a):
+        return torch.from_numpy(np.stack(
+            [np.stack([np.asarray(a[WIN4_WORLD * s + r], np.float32)
+                       for r in rows]) for s in range(WIN_STEPS)])).to(device)
+    return (take(imgs), take([Q_ID] * count), take(ts), take([K32] * count))
+
+
+def dp_window4_ranks():
+    """On this rank of four: the window of WIN_STEPS steps on its row of
+    ``win4_inputs`` at each capacity of WIN4_CAPS (the ``window`` case's
+    scene), its mode, state, metrics and last frame's ``in_camera``."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+
+    out = {}
+    for cap in WIN4_CAPS:
+        config = port_config(key_cap=cap, **WIN_TILE)
+        xyz, feats = dp_scene(seed=win_case("window")[0])
+        state = mh.broadcast_tree(port_state(config, xyz, feats))
+        window = make_dp_train_step(config, HW, HW, device="cpu",
+                                    scan_steps=WIN_STEPS)
+        new, stacked, fs = window(state, *win4_inputs([mh.rank()]), 3)
+        out[cap] = {"mode": window.mode, "world": mh.world_size(),
+                    "state": state_np(new),
+                    "metrics": {k: v.numpy() for k, v in stacked.items()},
+                    "in_camera": fs["in_camera"].numpy()}
+    return out
+
+
 def _train_run(config_dict):
     """One data-parallel train() on this rank: the final state's leaves,
     this rank's camera indices of each dispatch, (iteration, steps) of
