@@ -173,10 +173,29 @@ yardstick of their redesign), then:
    every one before the group goes (nothing in the phase releases one),
    and the card's reserved memory falls by at least what 15a's window
    held. The memory of 14e is read without the cyclic collector: a
-   window the trainer drops frees its graph at once.
+   window the trainer drops frees its graph at once;
+16. runs the synthetic quality gate, ``tools/quality_run.py`` (the port's
+   ``scripts/quality_run.py``), in its default preset and in full: the
+   procedural GT scene (16,000 Gaussians) rendered on the card into 48
+   views at 256 px (PNGs, or views in memory where PIL is missing), 2,000
+   noisy init points (a .parquet, or built in memory where no parquet
+   writer is) in a pool of 40,000, and 2001 iterations of
+   ``GaussianPointCloudTrainer.train()`` in windows of 10 steps, each a
+   CUDA graph, into a temporary directory. Prints the best val PSNR
+   beside the JAX package's 27.07-27.222 on a TPU v5e (RESULTS.md), the
+   final valid points beside its 40,000, the val PSNR at each
+   validation, the seconds and it/s beside the TPU's 1.3 it/s, the
+   windows, captures and replays, the key-capacity refits, and each
+   kernel's launches as the wrappers count them (eager steps, validation
+   frames, each graph's warm-up and capture; replays do not tick them).
+   Fails if the best val PSNR is outside [26.57, 27.72] (0.5 dB from the
+   JAX band), the final valid points are under 36,000, a plain version
+   ran, a kernel never launched, a loss was not finite, or a window held
+   other than one graph.
 
 Each path's launch counts are set to 0 just before it and read just after
-(in phases 10-13 and 15 by each rank, in its own process).
+(in phases 10-13 and 15 by each rank, in its own process; in phase 16
+around the gate's ``train()``).
 In phases 1 and 1b a float64 sequential front-to-back blend of every
 tile's sorted keys (``f64_counts``) gives each pixel's and each key's
 count; ``count_check`` in the record says on how many the kernel (K3's
@@ -1260,20 +1279,27 @@ def loop_trainer_class(train_items, val_items, xyz, feats, saved_as):
                 features=feats, device=self.device)
 
         def _save_scene(self, scene, path):
-            try:
-                scene_lib.to_parquet(scene, path)
-            except ImportError as e:
-                path = str(Path(path).with_suffix(".ply"))
-                scene_lib.to_ply(scene, path)
-                if not saved_as:
-                    print(f"  scene files as .ply: no parquet writer ({e})",
-                          flush=True)
-            if not saved_as:
-                print(f"  scene files written as {Path(path).suffix}",
-                      flush=True)
-            saved_as.append(path)
+            save_scene_file(scene, path, saved_as)
 
     return SmokeTrainer
+
+
+def save_scene_file(scene, path: str, saved_as: list) -> None:
+    """Write the scene as .parquet, or as .ply where pandas or its parquet
+    engine is missing; ``saved_as`` records the paths written."""
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+
+    try:
+        scene_lib.to_parquet(scene, path)
+    except ImportError as e:
+        path = str(Path(path).with_suffix(".ply"))
+        scene_lib.to_ply(scene, path)
+        if not saved_as:
+            print(f"  scene files as .ply: no parquet writer ({e})",
+                  flush=True)
+    if not saved_as:
+        print(f"  scene files written as {Path(path).suffix}", flush=True)
+    saved_as.append(path)
 
 
 @contextlib.contextmanager
@@ -2723,6 +2749,7 @@ def record_windows(trainer, memory: bool = False) -> list:
                 row["held_after_gib"] = held_gib()
             rows.append(row)
             return out
+        call.__wrapped__ = fn
         return call
 
     trainer._get_step = recorded
@@ -3261,6 +3288,186 @@ def check_dp_windows(res: dict, ref14: dict) -> dict:
             "dp_window_gloo": b, "dp_window_gloo_loop": gl}
 
 
+# --- phase 16: the synthetic quality gate --------------------------------------
+
+# The JAX package's default preset on a TPU v5e: best val PSNR 27.07 and
+# 27.222 (RESULTS.md:34-36, logs_quality_run_r1.txt; 27.188 in
+# RESULTS.md:433-436), 40,000 final valid points, 1.3 it/s
+# (logs_quality_run_r1.txt). The gate: 0.5 dB either side of that band.
+JAX_QUALITY_PSNR = (27.07, 27.222)
+JAX_QUALITY_POINTS = 40_000
+JAX_TPU_IT_S = 1.3
+QUALITY_PSNR_GATE = (26.57, 27.72)
+QUALITY_MIN_POINTS = 36_000
+
+
+def write_quality_dataset(qr, args, data) -> dict:
+    """The gate's dataset as the tool writes it: PNGs where PIL is there,
+    the init points as .parquet where pandas and a parquet engine are;
+    what is missing stays in memory (the returned record says which)."""
+    out = Path(args.out)
+    used = {"images": "png", "init_points": "parquet"}
+    try:
+        qr.write_images(args.out, data)
+    except ImportError as e:
+        used["images"] = f"memory (no PIL: {e})"
+    (out / "train.json").write_text(json.dumps(data.train))
+    (out / "val.json").write_text(json.dumps(data.val))
+    try:
+        qr.point_frame(data).to_parquet(out / "point_cloud.parquet")
+    except ImportError as e:
+        used["init_points"] = f"memory (no parquet writer: {e})"
+    return used
+
+
+def quality_trainer_class(qr, args, data, used: dict, saved_as: list):
+    """The trainer of the gate: ``GaussianPointCloudTrainer`` reading the
+    files, with in-memory views where the PNGs could not be written
+    (decoded as ``ImagePoseDataset`` decodes them: uint8 / 255), the init
+    points built as ``from_parquet`` builds them where the parquet could
+    not be written, and scene files as .ply where no parquet writer is."""
+    from taichi_3d_gaussian_splatting_tpu_torch.data.camera import CameraInfo
+    from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
+        DatasetItem, _se3_to_qt,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+
+    images = {qr.image_path(args.out, i): img
+              for i, img in enumerate(data.images)}
+
+    def views(records):
+        items = []
+        for j, r in enumerate(records):
+            q, t = _se3_to_qt(np.asarray(r["T_pointcloud_camera"],
+                                         np.float32))
+            items.append(DatasetItem(
+                image=images[r["image_path"]].astype(np.float32) / 255.0,
+                q_pointcloud_camera=q, t_pointcloud_camera=t,
+                camera_info=CameraInfo(
+                    np.asarray(r["camera_intrinsics"], np.float32),
+                    r["camera_height"], r["camera_width"], r["camera_id"]),
+                index=j))
+        return MemoryViews(items)
+
+    class QualityTrainer(trainer.GaussianPointCloudTrainer):
+        def _load_datasets(self):
+            if used["images"] == "png":
+                return super()._load_datasets()
+            return views(data.train), views(data.val)
+
+        def _load_scene(self):
+            if used["init_points"] == "parquet":
+                return super()._load_scene()
+            cfg = self.config.gaussian_point_cloud_scene_config
+            if cfg.add_sphere:
+                raise NotImplementedError("the in-memory init adds no sphere")
+            rgb = np.repeat(data.init_rgb, 3, axis=1).astype(np.float32)
+            return scene_lib.create_scene(
+                data.init_points.astype(np.float32), cfg, rgb=rgb,
+                seed=self.config.seed, device=self.device)
+
+        def _save_scene(self, scene, path):
+            save_scene_file(scene, path, saved_as)
+
+    return QualityTrainer
+
+
+def run_quality_gate(kernels, dev="cuda") -> dict:
+    """Phase 16: ``tools/quality_run.py``'s default preset in full (2001
+    iterations, 48 views at 256 px, windows of 10 steps) into a temporary
+    directory: the best val PSNR against the JAX package's band, the final
+    valid points, the val PSNR at each validation, the time, the windows,
+    the refits and each kernel's launches, counted by the wrappers over the
+    run (in its eager steps, validation frames and each graph's warm-up
+    and capture; a replay does not tick them)."""
+    from taichi_3d_gaussian_splatting_tpu_torch.tools import quality_run as qr
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        from_dict,
+    )
+
+    out = tempfile.TemporaryDirectory()
+    args = qr.parse_args(["--out", out.name, "--device", dev])
+    t0 = time.perf_counter()
+    data = qr.make_dataset(args)
+    used = write_quality_dataset(qr, args, data)
+    data_s = time.perf_counter() - t0
+    print(f"  dataset: {len(data.train)} train / {len(data.val)} val views "
+          f"at {args.width}x{args.hw}, {len(data.init_points)} init points, "
+          f"{data.gt_points} GT points (keys a view {min(data.gt_keys)}-"
+          f"{max(data.gt_keys)}); images as {used['images']}, init points "
+          f"as {used['init_points']}; {data_s:.1f} s", flush=True)
+    saved_as = []
+    Trainer = quality_trainer_class(qr, args, data, used, saved_as)
+    trainer = Trainer(from_dict(qr.config_dict(args)), device=dev)
+    windows = record_windows(trainer)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    with plain_calls() as plain:
+        rec = qr.train(trainer, args.iterations)
+    launches = read_launches(kernels)
+    state = rec.pop("state")
+    phase_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_reserved() / 2 ** 30 if dev == "cuda"
+            else float("nan"))
+    eager_steps = (rec["steps_run"]
+                   - trainer.config.steps_per_dispatch * len(windows))
+    best, points = rec["best_val_psnr"], rec["final_valid_points"]
+    print(f"  best val PSNR {best:.3f} (the JAX package on a TPU v5e: "
+          f"{JAX_QUALITY_PSNR[0]}-{JAX_QUALITY_PSNR[1]}, RESULTS.md; gate "
+          f"{list(QUALITY_PSNR_GATE)})", flush=True)
+    print(f"  final valid points {points} (JAX: {JAX_QUALITY_POINTS}; gate "
+          f">= {QUALITY_MIN_POINTS})", flush=True)
+    print(f"  val PSNR by iteration {rec['val_psnr']}; valid points there "
+          f"{rec['val_points']}", flush=True)
+    print(f"  {rec['seconds']:.1f} s for {args.iterations} iterations of "
+          f"train(), {rec['it_per_s']:.2f} it/s (the JAX package's run on a "
+          f"TPU v5e: {JAX_TPU_IT_S} it/s, a TPU figure from "
+          f"logs_quality_run_r1.txt and RESULTS.md); the phase "
+          f"{phase_s:.1f} s with the dataset; peak reserved {peak:.3f} GiB",
+          flush=True)
+    print(f"  windows {rec['windows']}: {rec['captures']} graphs captured, "
+          f"{rec['replays']} replays; eager steps {eager_steps}; refits "
+          f"(before, after, live keys) {rec['refits']}; steps with keys "
+          f"past key_cap {rec['steps_past_key_cap']}, non-finite losses "
+          f"{rec['nonfinite_losses']}", flush=True)
+    print(f"  launches (the wrappers' counters: eager steps, validation "
+          f"frames, each graph's warm-up and capture; not the replays) "
+          f"{launches}; plain versions {plain}; scene files "
+          f"{len(saved_as)} as {sorted({Path(p).suffix for p in saved_as})}",
+          flush=True)
+    if not QUALITY_PSNR_GATE[0] <= best <= QUALITY_PSNR_GATE[1]:
+        raise AssertionError(f"best val PSNR {best:.3f} outside "
+                             f"{QUALITY_PSNR_GATE}")
+    if points < QUALITY_MIN_POINTS:
+        raise AssertionError(f"{points} final valid points, under "
+                             f"{QUALITY_MIN_POINTS}")
+    if any(plain.values()):
+        raise AssertionError(f"the gate ran a plain version: {plain}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    if rec["nonfinite_losses"] or rec["steps_run"] != args.iterations:
+        raise AssertionError(f"{rec['nonfinite_losses']} non-finite losses, "
+                             f"{rec['steps_run']} steps run")
+    if not windows or any(r["graphs_held"] != 1 for r in windows):
+        raise AssertionError("the gate ran no window, or held other than "
+                             "one graph after one")
+    if not bool(torch.isfinite(state.scene.features).all()):
+        raise AssertionError("non-finite features after the gate")
+    out.cleanup()
+    return {**rec, "launches": launches, "plain_calls": plain,
+            "eager_steps": eager_steps, "phase_s": phase_s,
+            "dataset_s": data_s, "files": used, "peak_reserved_gib": peak,
+            "scene_files": len(saved_as),
+            "jax_tpu": {"best_val_psnr": list(JAX_QUALITY_PSNR),
+                        "final_valid_points": JAX_QUALITY_POINTS,
+                        "it_per_s": JAX_TPU_IT_S},
+            "gate": {"best_val_psnr": list(QUALITY_PSNR_GATE),
+                     "min_final_valid_points": QUALITY_MIN_POINTS}}
+
+
 # --- main -------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3551,6 +3758,12 @@ def main(argv=None) -> int:
           "window in an NCCL group of one, eager over gloo; the release at "
           "the group's end)")
     dpw = check_dp_windows(multi.pop("dp_windows"), windowed)
+    # phase 16: the quality gate's default preset in full, with the launch
+    # counts set to 0 just before its train() and read just after
+    phase("phase 16: the synthetic quality gate (tools/quality_run.py, "
+          "default preset: 2001 iterations, 48 views at 256 px, windows of "
+          "10)")
+    quality = run_quality_gate(kernels)
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -3662,6 +3875,10 @@ def main(argv=None) -> int:
                 for x in dpw["dp_window_gloo"]],
             "ms_window_replay": windowed["window_profile"][
                 "kernel_ms_under_replay"][name],
+            # phase 16: the wrappers' counters over the gate's train()
+            # (eager steps, validation frames, graph warm-ups and captures)
+            "launches_quality_run": sum(quality["launches"][c]
+                                        for c in counters),
             "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -3691,7 +3908,7 @@ def main(argv=None) -> int:
         "stage_ms": stages, "profile": busy,
         **train, **loop, **pose, **viewer, **dataset, **ftgmm, **windowed,
         **dpw,
-        "multi_rank": multi,
+        "multi_rank": multi, "quality_run": quality,
         "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
     }
@@ -3715,7 +3932,9 @@ def main(argv=None) -> int:
           f"DP window over NCCL (one rank) "
           f"{dpw['dp_window_nccl']['ms_per_step']:.3f} ms a step, its loop "
           f"{dpw['dp_window_nccl_loop']['window_loop_ms_per_iteration']:.2f}"
-          f" ms an iteration", flush=True)
+          f" ms an iteration; quality gate: best val PSNR "
+          f"{quality['best_val_psnr']:.3f}, {quality['final_valid_points']} "
+          f"points, {quality['it_per_s']:.2f} it/s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -103,17 +103,20 @@ def test_config_imports_without_yaml():
 
 
 def test_loop_imports_without_optional_packages():
-    """The card's machine may lack PIL, pandas, PyYAML and tensorboardX:
-    the dataset, the trainer and the train CLI import without them (each is
-    imported where it is used), and the trainer then has no writer."""
+    """The card's machine may lack PIL, pandas, PyYAML, tensorboardX and
+    scipy: the dataset, the trainer, the train CLI and the quality gate
+    import without them (each is imported where it is used), and the
+    trainer then has no writer."""
     code = (
         "import sys\n"
-        "for m in ('PIL', 'pandas', 'yaml', 'tensorboardX'):\n"
+        "for m in ('PIL', 'pandas', 'yaml', 'tensorboardX', 'scipy'):\n"
         "    sys.modules[m] = None  # an import of it now fails\n"
         "from taichi_3d_gaussian_splatting_tpu_torch.data import dataset\n"
         "from taichi_3d_gaussian_splatting_tpu_torch.training import "
         "trainer\n"
         "from taichi_3d_gaussian_splatting_tpu_torch.apps import train\n"
+        "from taichi_3d_gaussian_splatting_tpu_torch.tools import "
+        "quality_run\n"
         "from taichi_3d_gaussian_splatting_tpu_torch.training.config import "
         "TrainConfig\n"
         "class T(trainer.GaussianPointCloudTrainer):\n"
