@@ -177,17 +177,17 @@ yardstick of their redesign), then:
 16. runs the synthetic quality gate, ``tools/quality_run.py`` (the port's
    ``scripts/quality_run.py``), in its default preset and in full: the
    procedural GT scene (16,000 Gaussians) rendered on the card into 48
-   views at 256 px (PNGs, or views in memory where PIL is missing), 2,000
-   noisy init points (a .parquet, or built in memory where no parquet
-   writer is) in a pool of 40,000, and 2001 iterations of
-   ``GaussianPointCloudTrainer.train()`` in windows of 10 steps, each a
-   CUDA graph, into a temporary directory. Prints the best val PSNR
-   beside the JAX package's 27.07-27.222 on a TPU v5e (RESULTS.md), the
-   final valid points beside its 40,000, the val PSNR at each
-   validation, the seconds and it/s beside the TPU's 1.3 it/s, the
-   windows, captures and replays, the key-capacity refits, and each
-   kernel's launches as the wrappers count them (eager steps, validation
-   frames, each graph's warm-up and capture; replays do not tick them).
+   views at 256 px, written by the tool as PNGs, ``train.json``/``val.json``
+   and a .parquet of 2,000 noisy init points in a pool of 40,000, and 2001
+   iterations of the stock ``GaussianPointCloudTrainer.train()`` on those
+   files in windows of 10 steps, each a CUDA graph, into a temporary
+   directory. Prints the best val PSNR beside the JAX package's
+   27.07-27.222 on a TPU v5e (RESULTS.md), the final valid points beside
+   its 40,000, the val PSNR at each validation, the seconds and it/s
+   beside the TPU's 1.3 it/s, the windows, captures, replays and graphs
+   held (the tool's record), the key-capacity refits, and each kernel's
+   launches as the wrappers count them (eager steps, validation frames,
+   each graph's warm-up and capture; replays do not tick them).
    Fails if the best val PSNR is outside [26.57, 27.72] (0.5 dB from the
    JAX band), the final valid points are under 36,000, a plain version
    ran, a kernel never launched, a loss was not finite, or a window held
@@ -1279,27 +1279,20 @@ def loop_trainer_class(train_items, val_items, xyz, feats, saved_as):
                 features=feats, device=self.device)
 
         def _save_scene(self, scene, path):
-            save_scene_file(scene, path, saved_as)
+            try:
+                scene_lib.to_parquet(scene, path)
+            except ImportError as e:
+                path = str(Path(path).with_suffix(".ply"))
+                scene_lib.to_ply(scene, path)
+                if not saved_as:
+                    print(f"  scene files as .ply: no parquet writer ({e})",
+                          flush=True)
+            if not saved_as:
+                print(f"  scene files written as {Path(path).suffix}",
+                      flush=True)
+            saved_as.append(path)
 
     return SmokeTrainer
-
-
-def save_scene_file(scene, path: str, saved_as: list) -> None:
-    """Write the scene as .parquet, or as .ply where pandas or its parquet
-    engine is missing; ``saved_as`` records the paths written."""
-    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
-
-    try:
-        scene_lib.to_parquet(scene, path)
-    except ImportError as e:
-        path = str(Path(path).with_suffix(".ply"))
-        scene_lib.to_ply(scene, path)
-        if not saved_as:
-            print(f"  scene files as .ply: no parquet writer ({e})",
-                  flush=True)
-    if not saved_as:
-        print(f"  scene files written as {Path(path).suffix}", flush=True)
-    saved_as.append(path)
 
 
 @contextlib.contextmanager
@@ -2749,7 +2742,6 @@ def record_windows(trainer, memory: bool = False) -> list:
                 row["held_after_gib"] = held_gib()
             rows.append(row)
             return out
-        call.__wrapped__ = fn
         return call
 
     trainer._get_step = recorded
@@ -3301,78 +3293,6 @@ QUALITY_PSNR_GATE = (26.57, 27.72)
 QUALITY_MIN_POINTS = 36_000
 
 
-def write_quality_dataset(qr, args, data) -> dict:
-    """The gate's dataset as the tool writes it: PNGs where PIL is there,
-    the init points as .parquet where pandas and a parquet engine are;
-    what is missing stays in memory (the returned record says which)."""
-    out = Path(args.out)
-    used = {"images": "png", "init_points": "parquet"}
-    try:
-        qr.write_images(args.out, data)
-    except ImportError as e:
-        used["images"] = f"memory (no PIL: {e})"
-    (out / "train.json").write_text(json.dumps(data.train))
-    (out / "val.json").write_text(json.dumps(data.val))
-    try:
-        qr.point_frame(data).to_parquet(out / "point_cloud.parquet")
-    except ImportError as e:
-        used["init_points"] = f"memory (no parquet writer: {e})"
-    return used
-
-
-def quality_trainer_class(qr, args, data, used: dict, saved_as: list):
-    """The trainer of the gate: ``GaussianPointCloudTrainer`` reading the
-    files, with in-memory views where the PNGs could not be written
-    (decoded as ``ImagePoseDataset`` decodes them: uint8 / 255), the init
-    points built as ``from_parquet`` builds them where the parquet could
-    not be written, and scene files as .ply where no parquet writer is."""
-    from taichi_3d_gaussian_splatting_tpu_torch.data.camera import CameraInfo
-    from taichi_3d_gaussian_splatting_tpu_torch.data.dataset import (
-        DatasetItem, _se3_to_qt,
-    )
-    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
-    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
-
-    images = {qr.image_path(args.out, i): img
-              for i, img in enumerate(data.images)}
-
-    def views(records):
-        items = []
-        for j, r in enumerate(records):
-            q, t = _se3_to_qt(np.asarray(r["T_pointcloud_camera"],
-                                         np.float32))
-            items.append(DatasetItem(
-                image=images[r["image_path"]].astype(np.float32) / 255.0,
-                q_pointcloud_camera=q, t_pointcloud_camera=t,
-                camera_info=CameraInfo(
-                    np.asarray(r["camera_intrinsics"], np.float32),
-                    r["camera_height"], r["camera_width"], r["camera_id"]),
-                index=j))
-        return MemoryViews(items)
-
-    class QualityTrainer(trainer.GaussianPointCloudTrainer):
-        def _load_datasets(self):
-            if used["images"] == "png":
-                return super()._load_datasets()
-            return views(data.train), views(data.val)
-
-        def _load_scene(self):
-            if used["init_points"] == "parquet":
-                return super()._load_scene()
-            cfg = self.config.gaussian_point_cloud_scene_config
-            if cfg.add_sphere:
-                raise NotImplementedError("the in-memory init adds no sphere")
-            rgb = np.repeat(data.init_rgb, 3, axis=1).astype(np.float32)
-            return scene_lib.create_scene(
-                data.init_points.astype(np.float32), cfg, rgb=rgb,
-                seed=self.config.seed, device=self.device)
-
-        def _save_scene(self, scene, path):
-            save_scene_file(scene, path, saved_as)
-
-    return QualityTrainer
-
-
 def run_quality_gate(kernels, dev="cuda") -> dict:
     """Phase 16: ``tools/quality_run.py``'s default preset in full (2001
     iterations, 48 views at 256 px, windows of 10 steps) into a temporary
@@ -3385,22 +3305,23 @@ def run_quality_gate(kernels, dev="cuda") -> dict:
     from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
         from_dict,
     )
+    from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
+        GaussianPointCloudTrainer,
+    )
 
     out = tempfile.TemporaryDirectory()
     args = qr.parse_args(["--out", out.name, "--device", dev])
     t0 = time.perf_counter()
     data = qr.make_dataset(args)
-    used = write_quality_dataset(qr, args, data)
+    qr.write_dataset(args.out, data)
     data_s = time.perf_counter() - t0
     print(f"  dataset: {len(data.train)} train / {len(data.val)} val views "
-          f"at {args.width}x{args.hw}, {len(data.init_points)} init points, "
-          f"{data.gt_points} GT points (keys a view {min(data.gt_keys)}-"
-          f"{max(data.gt_keys)}); images as {used['images']}, init points "
-          f"as {used['init_points']}; {data_s:.1f} s", flush=True)
-    saved_as = []
-    Trainer = quality_trainer_class(qr, args, data, used, saved_as)
-    trainer = Trainer(from_dict(qr.config_dict(args)), device=dev)
-    windows = record_windows(trainer)
+          f"at {args.width}x{args.hw} (PNGs), {len(data.init_points)} init "
+          f"points (.parquet), {data.gt_points} GT points (keys a view "
+          f"{min(data.gt_keys)}-{max(data.gt_keys)}); {data_s:.1f} s",
+          flush=True)
+    trainer = GaussianPointCloudTrainer(from_dict(qr.config_dict(args)),
+                                        device=dev)
     if dev == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3412,8 +3333,9 @@ def run_quality_gate(kernels, dev="cuda") -> dict:
     phase_s = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_reserved() / 2 ** 30 if dev == "cuda"
             else float("nan"))
+    scene_files = len(list(Path(args.out, "logs").glob("*.parquet")))
     eager_steps = (rec["steps_run"]
-                   - trainer.config.steps_per_dispatch * len(windows))
+                   - trainer.config.steps_per_dispatch * rec["windows"])
     best, points = rec["best_val_psnr"], rec["final_valid_points"]
     print(f"  best val PSNR {best:.3f} (the JAX package on a TPU v5e: "
           f"{JAX_QUALITY_PSNR[0]}-{JAX_QUALITY_PSNR[1]}, RESULTS.md; gate "
@@ -3429,15 +3351,15 @@ def run_quality_gate(kernels, dev="cuda") -> dict:
           f"{phase_s:.1f} s with the dataset; peak reserved {peak:.3f} GiB",
           flush=True)
     print(f"  windows {rec['windows']}: {rec['captures']} graphs captured, "
-          f"{rec['replays']} replays; eager steps {eager_steps}; refits "
+          f"{rec['replays']} replays, graphs held after a window "
+          f"{rec['graphs_held']}; eager steps {eager_steps}; refits "
           f"(before, after, live keys) {rec['refits']}; steps with keys "
           f"past key_cap {rec['steps_past_key_cap']}, non-finite losses "
           f"{rec['nonfinite_losses']}", flush=True)
     print(f"  launches (the wrappers' counters: eager steps, validation "
           f"frames, each graph's warm-up and capture; not the replays) "
-          f"{launches}; plain versions {plain}; scene files "
-          f"{len(saved_as)} as {sorted({Path(p).suffix for p in saved_as})}",
-          flush=True)
+          f"{launches}; plain versions {plain}; scene files (.parquet) "
+          f"{scene_files}", flush=True)
     if not QUALITY_PSNR_GATE[0] <= best <= QUALITY_PSNR_GATE[1]:
         raise AssertionError(f"best val PSNR {best:.3f} outside "
                              f"{QUALITY_PSNR_GATE}")
@@ -3451,16 +3373,17 @@ def run_quality_gate(kernels, dev="cuda") -> dict:
     if rec["nonfinite_losses"] or rec["steps_run"] != args.iterations:
         raise AssertionError(f"{rec['nonfinite_losses']} non-finite losses, "
                              f"{rec['steps_run']} steps run")
-    if not windows or any(r["graphs_held"] != 1 for r in windows):
-        raise AssertionError("the gate ran no window, or held other than "
-                             "one graph after one")
+    if not rec["windows"] or rec["graphs_held"] != [1]:
+        raise AssertionError(f"the gate ran {rec['windows']} windows, "
+                             f"holding {rec['graphs_held']} graphs after one"
+                             f" (one wanted)")
     if not bool(torch.isfinite(state.scene.features).all()):
         raise AssertionError("non-finite features after the gate")
     out.cleanup()
     return {**rec, "launches": launches, "plain_calls": plain,
             "eager_steps": eager_steps, "phase_s": phase_s,
-            "dataset_s": data_s, "files": used, "peak_reserved_gib": peak,
-            "scene_files": len(saved_as),
+            "dataset_s": data_s, "peak_reserved_gib": peak,
+            "scene_files": scene_files,
             "jax_tpu": {"best_val_psnr": list(JAX_QUALITY_PSNR),
                         "final_valid_points": JAX_QUALITY_POINTS,
                         "it_per_s": JAX_TPU_IT_S},

@@ -3,8 +3,11 @@
 The port's counterpart of ``scripts/quality_run.py``, flag for flag:
 
     python -m taichi_3d_gaussian_splatting_tpu_torch.tools.quality_run \\
-        [--iterations 2001] [--views 48] [--hw 256] [--out /tmp/quality_run] \\
+        [--iterations 2001] [--views 48] [--hw 256] [--out DIR] \\
         [--pose_noise 0.0] [--long | --reference_regime] [--device cuda]
+
+``--out`` defaults to ``quality_run`` under the temporary directory
+(``TMPDIR``, else ``/tmp`` as in the JAX script).
 
 It renders ground-truth views of a procedural Gaussian scene with the
 port's ``rasterize`` on the device, writes them as a standard dataset (8-bit
@@ -38,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 from dataclasses import dataclass
 
@@ -108,7 +112,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--iterations", type=int, default=2001)
     parser.add_argument("--views", type=int, default=48)
     parser.add_argument("--hw", type=int, default=256)
-    parser.add_argument("--out", type=str, default="/tmp/quality_run")
+    parser.add_argument("--out", type=str, default=os.path.join(
+        tempfile.gettempdir(), "quality_run"))
     parser.add_argument("--pose_noise", type=float, default=0.0,
                         help="perturb TRAIN poses by this magnitude "
                         "(radians rot / units trans) and enable pose "
@@ -436,6 +441,7 @@ class Watch:
         self.val_seconds = {}
         self.windows = self.captures = self.replays = self.steps = 0
         self.refits = []
+        self.graphs_held = set()
         self.t0 = time.time()
         dev = trainer.device
         self._drops = torch.zeros((), dtype=torch.int64, device=dev)
@@ -457,18 +463,19 @@ class Watch:
 
         def watched_get_step(h, w, scan_steps=0):
             fn = get_step(h, w, scan_steps)
-            # the window itself, under another caller's wrapper
-            window = getattr(fn, "__wrapped__", fn)
 
             def call(*a):
                 cap = trainer._key_cap if trainer._capped else None
-                captures = getattr(window, "captures", 0)
+                captures = getattr(fn, "captures", 0)
                 out = fn(*a)
                 metrics = out[1]
                 if scan_steps:
                     self.windows += 1
-                    self.captures += window.captures - captures
-                    self.replays += window.mode == "graph"
+                    self.captures += fn.captures - captures
+                    self.replays += fn.mode == "graph"
+                    self.graphs_held.add(sum(
+                        len(getattr(f, "graphs", {}))
+                        for f in trainer._step_cache.values()))
                 if cap is not None:
                     self._drops += (metrics["num_keys"] > cap).sum()
                 self._nonfinite += (~torch.isfinite(metrics["loss"])).sum()
@@ -509,14 +516,16 @@ def train(trainer, iterations: int) -> dict:
             "val_seconds": watch.val_seconds,
             "windows": watch.windows, "captures": watch.captures,
             "replays": watch.replays, "refits": watch.refits,
+            "graphs_held": sorted(watch.graphs_held),
             **watch.counts(), "state": state}
 
 
 def print_record(rec: dict) -> None:
     """The run's lines; the last three are the JAX script's."""
     print(f"windows: {rec['windows']} called, {rec['captures']} graphs "
-          f"captured, {rec['replays']} replays; key_cap refits "
-          f"(before, after, live keys): {rec['refits']}")
+          f"captured, {rec['replays']} replays, graphs held after a window "
+          f"{rec['graphs_held']}; key_cap refits (before, after, live keys):"
+          f" {rec['refits']}")
     print(f"steps run: {rec['steps_run']}; steps with keys past key_cap: "
           f"{rec['steps_past_key_cap']}; non-finite losses: "
           f"{rec['nonfinite_losses']}")

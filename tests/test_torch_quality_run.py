@@ -7,9 +7,11 @@ reference-regime parameters, with the generator left in the same state;
 rgb within 1e-4, and 8-bit images (truncated, as the scripts save them)
 at most one level apart, only where the JAX value lies within 1e-4 of a
 k/255 boundary; (c) both scripts' ``main()`` on the same arguments, with
-the small scene and a trainer stub: the same train/val records (perturbed
-poses included), the same parquet, PNGs within (b)'s rule and the same
-config field by field; (d) a 30-iteration run of the port on the CPU and a
+the small scene and a trainer stub, in the default, ``--long`` and
+``--reference_regime`` presets (the last two with zero GT frames from
+render stubs): the same train/val records (perturbed poses included), the
+same parquet, PNGs within (b)'s rule, the same GT render config and the
+same trainer config field by field; (d) a 30-iteration run of the port on the CPU and a
 second call that keeps the dataset and resumes from
 ``checkpoint_latest``. For (d) the validation interval is cut to 10 (the
 script's is at least 250), so that a 30-iteration run validates and
@@ -168,22 +170,49 @@ def normalized(value, out: str):
     return value
 
 
+@pytest.mark.parametrize("preset", [[], ["--long"], ["--reference_regime"]],
+                         ids=["default", "long", "reference_regime"])
 def test_main_writes_the_jax_scripts_dataset_and_config(
-        jq, jax_frames, tmp_path, monkeypatch):
-    argv = ["--views", "8", "--hw", "64", "--pose_noise", "0.01"]
+        jq, jax_frames, tmp_path, monkeypatch, preset):
+    """The default preset renders the small GT in both packages; the two
+    that force 512 px get zero frames from stubs of the JAX script's
+    ``rasterize`` and the port's ``render_views`` (each records the render
+    config it was given), so that their records, parquet and configs are
+    compared without a 512-px render."""
+    argv = ["--views", "8", "--hw", "64", "--pose_noise", "0.01", *preset]
     outs = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
     StubTrainer.configs = []
     for mod in (jq, qr):
         orig = mod.make_gt_scene
         monkeypatch.setattr(mod, "make_gt_scene",
-                            lambda rng, orig=orig: orig(rng, **SMALL))
+                            lambda rng, orig=orig, **kw: orig(rng, **SMALL))
     monkeypatch.setattr(jax_trainer, "GaussianPointCloudTrainer",
                         StubTrainer)
+    rendered = {}
+    if preset:
+        def jax_rasterize(xyz, feats, invalid, q, t, camera, rcfg):
+            rendered["jax"] = (rcfg.tile_size, rcfg.key_cap,
+                               camera.height, camera.width)
+            return types.SimpleNamespace(rgb=jnp.zeros(
+                (camera.height, camera.width, 3), jnp.float32))
+
+        def port_render(xyz, feats, cams, height, width, key_cap, dev):
+            rendered["port"] = (32, key_cap, height, width)
+            return ([np.zeros((height, width, 3), np.float32) for _ in cams],
+                    [0] * len(cams))
+        monkeypatch.setattr(jr, "rasterize", jax_rasterize)
+        monkeypatch.setattr(qr, "render_views", port_render)
     monkeypatch.setattr(sys, "argv",
                         ["quality_run.py", *argv, "--out", outs["jax"]])
     jq.main()
     qr.main([*argv, "--out", outs["port"], "--device", "cpu"],
             trainer_class=StubTrainer)
+
+    args = qr.parse_args(argv)
+    if preset:
+        assert rendered["jax"] == rendered["port"] == (
+            32, 2 ** 21 if args.reference_regime else 2 ** 19,
+            args.hw, args.width)
 
     def read(name):
         return {k: json.loads(Path(o, name).read_text())
@@ -194,11 +223,12 @@ def test_main_writes_the_jax_scripts_dataset_and_config(
         assert normalized(recs["jax"], outs["jax"]) == normalized(
             recs["port"], outs["port"])
     # the train poses are perturbed, the val poses are the ring's
-    cams = qr.ring_cameras(8, hw=64)
+    cams = qr.ring_cameras(8, hw=args.hw, w=args.width)
     assert read("train.json")["port"][0]["T_pointcloud_camera"] != \
         cams[1][0].tolist()
     assert read("val.json")["port"][0]["T_pointcloud_camera"] == \
         cams[0][0].tolist()
+    assert read("val.json")["port"][0]["camera_width"] == args.width
 
     frames = [pd.read_parquet(Path(o, "point_cloud.parquet"))
               for o in outs.values()]
@@ -206,21 +236,24 @@ def test_main_writes_the_jax_scripts_dataset_and_config(
     assert len(frames[0]) == 25
     pd.testing.assert_frame_equal(frames[0], frames[1], check_exact=True)
 
-    want = jax_frames(cams)
+    want = (jax_frames(cams) if not preset else
+            [np.zeros((args.hw, args.width, 3), np.float32)] * len(cams))
     off = 0
     for i, rgb in enumerate(want):
         j, p = (np.asarray(Image.open(Path(o, "imgs", f"{i:03d}.png")))
                 for o in outs.values())
-        assert j.shape == p.shape == (64, 64, 3)
+        assert j.shape == p.shape == (args.hw, args.width, 3)
         assert np.array_equal(j, (rgb * 255).astype(np.uint8))
         off += off_levels(rgb, j, p)
-    print(f"PNG levels off by one: {off} of {8 * 64 * 64 * 3}")
+    print(f"PNG levels off by one: {off} of {j.size * len(want)}")
 
     cfg_j, cfg_p = StubTrainer.configs
     assert normalized(dataclasses.asdict(cfg_j), outs["jax"]) == normalized(
         dataclasses.asdict(cfg_p), outs["port"])
-    assert cfg_p.steps_per_dispatch == 10 and cfg_p.pose_refinement
-    assert cfg_p.rasterisation_config.interpret
+    assert cfg_p.num_iterations == args.iterations
+    assert cfg_p.pose_refinement and cfg_p.rasterisation_config.interpret
+    assert cfg_p.steps_per_dispatch == (20 if args.reference_regime else 10)
+    assert cfg_p.gaussian_point_cloud_scene_config.add_sphere == bool(preset)
 
 
 @pytest.fixture
@@ -255,6 +288,7 @@ def test_tiny_run_on_the_cpu_trains_and_resumes(tmp_path, small_port):
     assert rec["best_val_psnr"] == max(rec["val_psnr"].values()) > 5.0
     assert rec["steps_run"] == 30 and rec["windows"] == 2
     assert rec["captures"] == rec["replays"] == 0  # eager on the CPU
+    assert rec["graphs_held"] == [0]
     assert rec["nonfinite_losses"] == 0 and rec["steps_past_key_cap"] == 0
     assert rec["final_valid_points"] == 25
     assert (tmp_path / "logs" / "checkpoint_latest").exists()
