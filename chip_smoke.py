@@ -25,11 +25,18 @@ yardstick of their redesign), then:
    at a threshold, a fault of neither side);
 2. renders 9 full-width frames through ``apps/render.py``'s
    GaussianPointRenderer (the user's entry point; the scene goes through a
-   .ply file), with every kernel's launch count set to 0 before and read
-   after, and the first design's data movement (the table gather, the
-   regroup) counted and held at 0; checks the frames, and one full-output frame against the plain
-   blend;
-3. times the render with CUDA events after a warm-up, each stage's wall
+   .ply file), as the JAX renderer does: the key capacity fitted to the
+   poses (``fit_key_cap``, headroom 1.15), each frame one CUDA graph
+   replay at that capacity. Every kernel's launch count is set to 0
+   before and read after, and the first design's data movement (the table
+   gather, the regroup) counted and held at 0. Checks one capture, K1a (in
+   its capped mode), K1b, K2 and K3 launched at the graph's warm-up and
+   capture alone and once a replay in a profiler trace of replays, every
+   replayed frame bit for bit the exact eager frame (keys sized to the
+   frame's total) and the capped eager frame, no frame past the capacity,
+   the frames, and one full-output frame against the plain blend;
+3. times the graph frame and the exact eager frame with CUDA events after
+   a warm-up, each stage's wall
    and device time, and each kernel's device time (torch.profiler) beside
    its plain version's, its library call's (torch.searchsorted for K2's
    tile_ranges; for K5 the chain index_copy_ + torch.segment_reduce) and
@@ -92,7 +99,8 @@ yardstick of their redesign), then:
    against the single-pose render; prints the median frame latency;
 8. renders from a dataset .json (``render.poses_from_dataset``, three
    960x544 PNG views, or items served from memory where PIL is missing)
-   with rgb_only and pack_sort_colors: K1-K3 once a frame, the table's r
+   with rgb_only and pack_sort_colors: one graph, K1-K3 at its warm-up
+   and capture, the table's r
    and g rows equal to round_bf16 of the unpacked rows and the rest equal,
    K3 on the packed table against the plain blend (rgb 1e-4);
 9. runs ``tools/ftgmm.ft_grab_scene`` once on the loop's final scene:
@@ -116,10 +124,11 @@ yardstick of their redesign), then:
    kernel once a step on each rank;
 12. ``apps/render.py``'s renderer on the two ranks over the 9 poses at
    960x544: ``data_parallel`` (rank r renders poses r, r + 2, ...) whose
-   uint8 frames equal phase 2's bit for bit, and ``tile_parallel`` (576
-   rows rendered in two bands, cropped to 544) whose float frames hold the
-   image gate against the single-device render (rgb, alpha 1e-4, depth
-   5e-4, counts but 0.01% of pixels); K1-K3 once a frame a rank;
+   uint8 frames equal phase 2's bit for bit (each rank one graph, K1-K3
+   at its warm-up and capture), and ``tile_parallel`` (576 rows rendered
+   in two bands, cropped to 544, keys sized exactly) whose float frames
+   hold the image gate against the single-device render (rgb, alpha 1e-4,
+   depth 5e-4, counts but 0.01% of pixels), K1-K3 once a frame a rank;
 13. ``parallel/mh_smoke.py``'s worker on two ranks (4 cameras a rank)
    against ``single_process_reference`` (one process, 8 cameras): losses
    at rtol 1e-5, Adam's first moments at the gradient gate, the visibility
@@ -191,11 +200,25 @@ yardstick of their redesign), then:
    Fails if the best val PSNR is outside [26.57, 27.72] (0.5 dB from the
    JAX band), the final valid points are under 36,000, a plain version
    ran, a kernel never launched, a loss was not finite, or a window held
-   other than one graph.
+   other than one graph;
+17. runs ``tools/inference_benchmark.py`` (the port of
+   ``benchmark/inference_benchmark.py``) in the reference protocol, 1000
+   warm-up and 100 timed frames, on the phase-4 scene as a .ply over a
+   dataset .json of 8 PNG views at 960x544 (written as phase 8's): the
+   capacity fitted over the views (headroom 1.1), one CUDA graph a (H, W)
+   bucket. Fails unless there is one graph, K1a (capped mode), K1b, K2
+   and K3 launched at its warm-up and capture with no plain call, no
+   frame passed the capacity, and every view's replayed frame is the
+   exact eager frame bit for bit; prints ms (host clock and CUDA events),
+   FPS and Mpix/s beside the card; then runs
+   ``tools/profile_attribution.py --rgb-only --fit-cap`` and prints its
+   device time by stage and its top kernels.
 
 Each path's launch counts are set to 0 just before it and read just after
 (in phases 10-13 and 15 by each rank, in its own process; in phase 16
-around the gate's ``train()``).
+around the gate's ``train()``; in phase 17 around the benchmark's
+frames). A graph's replays do not tick the counters: its warm-up and
+capture do, and a profiler trace of replays counts the launches there.
 In phases 1 and 1b a float64 sequential front-to-back blend of every
 tile's sorted keys (``f64_counts``) gives each pixel's and each key's
 count; ``count_check`` in the record says on how many the kernel (K3's
@@ -648,6 +671,71 @@ def stage_ms(renderer, q, t) -> dict:
                                         0.0, 1.0) * 255).to(torch.uint8).cpu(),
         reps, EW + ("Memcpy DtoH",))
     return out
+
+
+RENDER_SYMBOLS = ("expand_keys", "tile_ranges", "blend_forward")
+
+
+def replay_launches(fn, reps: int) -> dict:
+    """Each render kernel's launches a call of ``fn`` (graph replays: the
+    wrappers' counters do not tick), from a profiler window of reps
+    calls; K1 counts its two kernels' launches."""
+    syms = {n: WINDOW_SYMBOLS[n] for n in RENDER_SYMBOLS}
+    _, calls = profiled(fn, reps, tuple(x + "(" for v in syms.values()
+                                        for x in v))
+    return {n: sum(k for ev, _, k in calls
+                   if any(x + "(" in ev for x in v)) for n, v in syms.items()}
+
+
+def graph_frames(renderer, launches: dict, capped: int) -> dict:
+    """Phase 2's checks of the renderer's graph frame: one capture; K1a
+    (in its capped mode), K1b, K2 and K3 launched at its warm-up and
+    capture alone (``launches``, ``capped``: the counters over
+    ``frames()``); every pose's replayed frame bit for bit the exact eager
+    frame (no key capacity) and the capped eager frame; each kernel once a
+    replay in a profiler window of replays; no frame past the capacity."""
+    from taichi_3d_gaussian_splatting_tpu_torch.apps.render import se3_to_qt
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    if renderer.captures != 1 or renderer.graph is None:
+        raise AssertionError(f"{renderer.captures} captures")
+    if any(n != 2 for n in launches.values()) or capped != 2:
+        raise AssertionError(f"graph frame launches {launches}, capped K1a "
+                             f"{capped}: expected 2 each (warm-up, capture)")
+    s = renderer.scene
+    qs, ts = se3_to_qt(renderer.poses)
+    n = qs.shape[0]
+    unequal = []
+    for i in range(n):
+        got = renderer.render(qs[i], ts[i])
+        exact = torch.clamp(R.rasterize(
+            s.xyz, s.features, s.invalid, qs[i], ts[i], renderer.camera,
+            renderer.rcfg, sh_max_band=3, point_object_id=s.object_id).rgb,
+            0.0, 1.0)
+        eager, _ = renderer.render_capped(qs[i], ts[i])
+        if not (torch.equal(got, exact) and torch.equal(got, eager)):
+            unequal.append(i)
+    state = {"i": 0}
+
+    def replay():
+        i = state["i"] % n
+        state["i"] += 1
+        renderer.graph(qs[i], ts[i])
+    per_replay = replay_launches(replay, n)
+    over = renderer.report_over_cap()
+    want = {"expand_keys": 2, "tile_ranges": 1, "blend_forward": 1}
+    print(f"  graph frame: key_cap {renderer.key_cap}, {renderer.captures} "
+          f"capture ({renderer.graph.capture_s:.3f} s); {n - len(unequal)} "
+          f"of {n} replayed frames bit for bit the exact eager frame; "
+          f"launches a replay (trace) {per_replay}; frames past the "
+          f"capacity {over}", flush=True)
+    if unequal or per_replay != want or over:
+        raise AssertionError(f"graph frames {unequal} differ, launches a "
+                             f"replay {per_replay}, {over} past capacity")
+    return {"render_key_cap": renderer.key_cap,
+            "render_graph_capture_s": renderer.graph.capture_s,
+            "render_launches_per_replay": per_replay,
+            "render_graph_launches": dict(launches, capped_slot_keys=capped)}
 
 
 @contextlib.contextmanager
@@ -1875,6 +1963,30 @@ def run_viewer(xyz, feats, kernels, tmp: Path, dev="cuda") -> dict:
 DATASET_VIEWS = 3
 
 
+def write_views(tmp: Path, K_np, count: int, dev, png: bool = True):
+    """A dataset .json of ``count`` views at 960x544 (``loop_views``, at
+    ``poses(count)``) in ``tmp``, each written as a PNG (unless not
+    ``png``): (json path, the DatasetItems, the poses)."""
+    Ts = poses(count)
+    items = loop_views(K_np, dev, count=count)
+    records = []
+    for i, item in enumerate(items):
+        path = tmp / f"view_{i}.png"
+        if png:
+            from PIL import Image
+
+            Image.fromarray(np.round(item.image * 255).astype(np.uint8),
+                            "RGB").save(path)
+        records.append({"image_path": str(path),
+                        "T_pointcloud_camera": Ts[i].tolist(),
+                        "camera_intrinsics": K_np.tolist(),
+                        "camera_height": HEIGHT, "camera_width": WIDTH,
+                        "camera_id": 0})
+    json_path = tmp / "views.json"
+    json_path.write_text(json.dumps(records))
+    return json_path, items, Ts
+
+
 def run_dataset_render(xyz, feats, K_np, kernels, tmp: Path,
                        dev="cuda") -> dict:
     """Phase 8: ``apps/render.py`` from a dataset .json (``poses_from_dataset``
@@ -1898,24 +2010,9 @@ def run_dataset_render(xyz, feats, K_np, kernels, tmp: Path,
     scene_lib.to_ply(scene_lib.create_scene(xyz, scene_lib.SceneConfig(),
                                             features=feats, device="cpu"),
                      ply)
-    Ts = poses(DATASET_VIEWS)
-    items = loop_views(K_np, dev, count=DATASET_VIEWS)
     has_pil = importlib.util.find_spec("PIL") is not None
-    records = []
-    for i, item in enumerate(items):
-        path = tmp / f"view_{i}.png"
-        if has_pil:
-            from PIL import Image
-
-            Image.fromarray(np.round(item.image * 255).astype(np.uint8),
-                            "RGB").save(path)
-        records.append({"image_path": str(path),
-                        "T_pointcloud_camera": Ts[i].tolist(),
-                        "camera_intrinsics": K_np.tolist(),
-                        "camera_height": HEIGHT, "camera_width": WIDTH,
-                        "camera_id": 0})
-    json_path = tmp / "views.json"
-    json_path.write_text(json.dumps(records))
+    json_path, items, Ts = write_views(tmp, K_np, DATASET_VIEWS, dev,
+                                       png=has_pil)
     dataset_cls = D.ImagePoseDataset
     if not has_pil:
         print("  no PIL on this machine: the dataset's items are served "
@@ -1940,12 +2037,15 @@ def run_dataset_render(xyz, feats, K_np, kernels, tmp: Path,
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     e_pose = float(np.abs(Ts_read - Ts).max())
-    want = {"slot_keys": DATASET_VIEWS, "sorted_table": DATASET_VIEWS,
-            "tile_ranges": DATASET_VIEWS, "blend_forward": DATASET_VIEWS,
-            "blend_backward": 0, "segment_reduce_sorted": 0}
-    if launches != want:
+    # the frames are one graph's replays: K1-K3 launch at its warm-up and
+    # capture alone
+    want = {"slot_keys": 2, "sorted_table": 2, "tile_ranges": 2,
+            "blend_forward": 2, "blend_backward": 0,
+            "segment_reduce_sorted": 0}
+    if launches != want or renderer.captures != 1:
         raise AssertionError(f"dataset render launches {launches}, "
-                             f"expected {want}")
+                             f"expected {want}; {renderer.captures} "
+                             f"captures")
     if e_pose > 1e-6 or (info.camera_height, info.camera_width) != (
             HEIGHT, WIDTH):
         raise AssertionError(f"dataset poses or size: {e_pose}, {info}")
@@ -1985,6 +2085,115 @@ def run_dataset_render(xyz, feats, K_np, kernels, tmp: Path,
             "dataset_launches": launches, "dataset_pose_err": e_pose,
             "dataset_packed_rgb_err": e_rgb,
             "dataset_pack_rounding": e_pack}
+
+
+# --- phase 17: the inference benchmark ---------------------------------------
+
+BENCH_VIEWS = 8
+
+
+def run_inference_benchmark(xyz, feats, K_np, kernels, tmp: Path,
+                            card: str) -> dict:
+    """Phase 17: ``tools/inference_benchmark.py`` (the port of
+    ``benchmark/inference_benchmark.py``) in its reference protocol, 1000
+    warm-up and 100 timed frames, on the phase-4 scene as a .ply and a
+    dataset .json of BENCH_VIEWS PNG views at 960x544 (``write_views``),
+    with the launch counts and the plain versions' calls read around it.
+    Fails unless one graph serves the one (H, W) bucket, K1a (capped
+    mode), K1b, K2 and K3 launched at its warm-up and capture alone, no
+    plain version ran, no frame passed the capacity, and every view's
+    replayed frame is the exact eager frame bit for bit. Then traces
+    ``tools/profile_attribution.py --rgb-only --fit-cap`` and prints its
+    top kernels and stages."""
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as scene_lib
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import expand
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+    from taichi_3d_gaussian_splatting_tpu_torch.tools import (
+        inference_benchmark as ib,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.tools import (
+        profile_attribution as pa,
+    )
+
+    bench_dir = tmp / "inference_benchmark"
+    bench_dir.mkdir()
+    ply = str(bench_dir / "scene.ply")
+    scene_lib.to_ply(scene_lib.create_scene(xyz, scene_lib.SceneConfig(),
+                                            features=feats, device="cpu"),
+                     ply)
+    json_path, _, _ = write_views(bench_dir, K_np, BENCH_VIEWS, "cuda")
+    args = ib.parse_args(["--scene", ply, "--dataset", str(json_path),
+                          "--save_image", str(bench_dir / "frame.png")])
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    expand.slot_keys.capped_launches = 0
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        rec, bench = ib.run(args)
+    run_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    capped = expand.slot_keys.capped_launches
+    # every view's replayed frame against the exact eager frame
+    s = bench.scene
+    unequal = []
+    for i, (hw, q, t, K) in enumerate(bench.items):
+        got = bench.render(i)
+        exact = R.rasterize(s.xyz, s.features, s.invalid, q, t,
+                            R.Camera(K=K, width=hw[1], height=hw[0]),
+                            bench.rcfg, sh_max_band=3,
+                            point_object_id=s.object_id).rgb
+        if not torch.equal(got, exact):
+            unequal.append(i)
+    state = {"i": 0}
+
+    def replay():
+        i = state["i"] % len(bench.items)
+        state["i"] += 1
+        bench.render(i)
+    per_replay = replay_launches(replay, len(bench.items))
+    over = int(bench.over_cap)
+    graph_s = [g.capture_s for g in bench.graphs.values()]
+    bench.release()
+    want = {"slot_keys": 2, "sorted_table": 2, "tile_ranges": 2,
+            "blend_forward": 2, "blend_backward": 0,
+            "segment_reduce_sorted": 0}
+    print(f"  {rec['points']} points, {BENCH_VIEWS} views at {WIDTH}x"
+          f"{HEIGHT}: key_cap {rec['key_cap']} (worst probed total "
+          f"{rec['worst_key_total']}, headroom 1.1); graphs {rec['graphs']} "
+          f"(capture {graph_s} s); {rec['warmup']} warm-up + {rec['iters']} "
+          f"timed frames; frames past the capacity {rec['frames_over_cap']}"
+          f" (and {over} after the checks); launches {launches}, capped K1a "
+          f"{capped}; plain calls {plain}; {BENCH_VIEWS - len(unequal)} of "
+          f"{BENCH_VIEWS} replayed frames bit for bit the exact eager frame;"
+          f" launches a replay (trace) {per_replay} [{run_s:.1f} s]",
+          flush=True)
+    print(f"  inference benchmark: {rec['ms']:.4f} ms a frame (host clock; "
+          f"CUDA events {rec['event_ms']:.4f}), FPS {rec['fps']:.2f}, "
+          f"Mpix/s {rec['mpix_s']:.2f}; {card}", flush=True)
+    if (launches != want or capped != 2 or any(plain.values())
+            or len(rec["graphs"]) != 1 or rec["frames_over_cap"] or over
+            or unequal or per_replay != {"expand_keys": 2, "tile_ranges": 1,
+                                         "blend_forward": 1}):
+        raise AssertionError("phase 17: the inference benchmark failed its "
+                             "checks")
+    t0 = time.perf_counter()
+    prof = pa.main(["--rgb-only", "--fit-cap",
+                    "--out", str(bench_dir / "trace")])
+    prof_s = time.perf_counter() - t0
+    print(f"  profile_attribution --rgb-only --fit-cap (its seeded scene, "
+          f"428,000 points, 1024x544): key_cap {prof['key_cap']}, device "
+          f"{prof['device_ms_per_run']:.4f} ms a run; stages "
+          f"{ {k: round(v, 4) for k, v in prof['by_stage'].items()} }; top "
+          f"kernels {dict(list(prof['by_kernel'].items())[:8])} "
+          f"[{prof_s:.1f} s]", flush=True)
+    if prof["device_ms_per_run"] <= 0:
+        raise AssertionError("phase 17: the profile shows no device time")
+    return dict(rec, run_s=run_s, launches=launches,
+                capped_slot_keys=capped, plain_calls=dict(plain),
+                launches_per_replay=per_replay, capture_s=graph_s,
+                card=card, profile={k: prof[k] for k in (
+                    "key_cap", "key_total", "device_ms_per_run", "by_stage",
+                    "by_kernel")})
 
 
 # --- phase 9: the scene as a Gaussian mixture, in Fourier space --------------
@@ -2491,7 +2700,9 @@ def run_multi_rank(xyz, feats, frames: dict, tmp: Path, phase,
             or fl["count_differs"] > 1e-4 * HEIGHT * WIDTH):
         raise AssertionError("12: band render outside the image gate")
     for rank, r in enumerate(r12):
-        n_dp = len(r["data_parallel"]["frames"])
+        # pose-sharded frames are one graph's replays (K1-K3 launch at its
+        # warm-up and capture); the bands size their keys exactly
+        n_dp = 2 if r["data_parallel"]["frames"] else 0
         if (any(v != n_dp for v in r["data_parallel"]["launches"].values())
                 or any(v != len(frames) for v in r["tile_parallel"][
                     "launches"].values())):
@@ -3481,18 +3692,17 @@ def main(argv=None) -> int:
     # phase 2: the main path, with the launch counts read around it
     phase("phase 2: render through GaussianPointRenderer")
     zero_launches(kernels)
+    expand.slot_keys.capped_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with first_design_calls() as off_path:
         frames = dict(renderer.frames())
     first_pass_s = time.perf_counter() - t0
     launches = read_launches(render_kernels)
-    print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass); "
-          f"launches {launches}; first design's calls {off_path}", flush=True)
-    for name, n in launches.items():
-        if n != len(pose_list):
-            raise AssertionError(f"{name}: {n} launches in "
-                                 f"{len(pose_list)} frames")
+    graph = graph_frames(renderer, launches, expand.slot_keys.capped_launches)
+    print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass, the "
+          f"capture included); launches {launches} (the graph's warm-up and "
+          f"capture); first design's calls {off_path}", flush=True)
     if any(off_path.values()):
         raise AssertionError(f"the render path ran the first design's data "
                              f"movement: {off_path}")
@@ -3529,9 +3739,21 @@ def main(argv=None) -> int:
         state["i"] += 1
         renderer.render(qs[i], ts[i])
 
+    def exact_frame():
+        i = state["i"] % n_poses
+        state["i"] += 1
+        out = R.rasterize(s.xyz, s.features, s.invalid, qs[i], ts[i],
+                          renderer.camera, renderer.rcfg, sh_max_band=3,
+                          point_object_id=s.object_id)
+        torch.clamp(out.rgb, 0.0, 1.0)
+
     torch.cuda.reset_peak_memory_stats()
     frame_ms = cuda_ms(one_frame, reps=45, warmup=9)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    exact_ms = cuda_ms(exact_frame, reps=45, warmup=9)
+    print(f"  the graph frame (key_cap {renderer.key_cap}) {frame_ms:.4f} ms,"
+          f" the exact eager frame {exact_ms:.4f} ms; "
+          f"{card}", flush=True)
     t0 = time.perf_counter()
     frames = dict(renderer.frames())
     frames_s = time.perf_counter() - t0
@@ -3687,6 +3909,13 @@ def main(argv=None) -> int:
           "default preset: 2001 iterations, 48 views at 256 px, windows of "
           "10)")
     quality = run_quality_gate(kernels)
+    # phase 17: the inference benchmark's reference protocol, with the
+    # launch counts set to 0 just before it and read just after
+    phase("phase 17: the inference benchmark (tools/inference_benchmark.py,"
+          " 1000 warm-up and 100 timed frames, one CUDA graph a bucket)")
+    with tempfile.TemporaryDirectory() as tmp17:
+        infer = run_inference_benchmark(xyz, feats, K_np, kernels,
+                                        Path(tmp17), card)
 
     # bounds: each input read once, each output written once, and the
     # operations this frame's data needs, on an H100 SXM
@@ -3756,8 +3985,10 @@ def main(argv=None) -> int:
                                         for c in counters),
             "launches_per_step": sum(train["train_launches_per_step"][c]
                                      for c in counters),
-            "launches_per_frame": sum(launches.get(c, 0)
-                                      for c in counters) / len(pose_list),
+            "launches_per_frame": graph["render_launches_per_replay"].get(
+                name, 0),
+            "launches_render_graph_capture": sum(launches.get(c, 0)
+                                                 for c in counters),
             "launches_pose_steps": sum(pose["pose_launches"][c]
                                        for c in counters),
             "launches_viewer_frames": sum(viewer["viewer_launches"][c]
@@ -3802,6 +4033,13 @@ def main(argv=None) -> int:
             # (eager steps, validation frames, graph warm-ups and captures)
             "launches_quality_run": sum(quality["launches"][c]
                                         for c in counters),
+            # phase 17: the wrappers' counters over the benchmark's 1100
+            # frames (its graph's warm-up and capture), and a replay's
+            # launches from the trace
+            "launches_inference_benchmark": sum(infer["launches"][c]
+                                                for c in counters),
+            "launches_inference_replay": infer["launches_per_replay"].get(
+                name, 0),
             "kernel_symbols": [sym for _, sym in timed[name][0]],
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -3821,8 +4059,8 @@ def main(argv=None) -> int:
         "blended_pairs": included,
         "walked_pairs": {k_: v for k_, v in walked.items()
                          if k_ != "tile_block_keys"},
-        "launches_per_frame": {n: launches[n] / len(pose_list)
-                               for n in launches},
+        "launches_per_frame": graph["render_launches_per_replay"], **graph,
+        "render_exact_ms_per_frame": exact_ms,
         "searchsorted_ms": searchsorted_ms,
         "segment_reduce_library_ms": segment_reduce_lib_ms,
         "kernel_call_wall_ms": call_ms, "first_design_stage_ms": design_ms,
@@ -3832,6 +4070,7 @@ def main(argv=None) -> int:
         **train, **loop, **pose, **viewer, **dataset, **ftgmm, **windowed,
         **dpw,
         "multi_rank": multi, "quality_run": quality,
+        "inference_benchmark": infer,
         "count_check": COUNT_CHECK, "profiler_windows": dict(WINDOWS),
         "kernels": rows,
     }
@@ -3857,7 +4096,9 @@ def main(argv=None) -> int:
           f"{dpw['dp_window_nccl_loop']['window_loop_ms_per_iteration']:.2f}"
           f" ms an iteration; quality gate: best val PSNR "
           f"{quality['best_val_psnr']:.3f}, {quality['final_valid_points']} "
-          f"points, {quality['it_per_s']:.2f} it/s", flush=True)
+          f"points, {quality['it_per_s']:.2f} it/s; inference benchmark "
+          f"{infer['ms']:.3f} ms a frame, {infer['fps']:.2f} FPS, "
+          f"{infer['mpix_s']:.2f} Mpix/s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

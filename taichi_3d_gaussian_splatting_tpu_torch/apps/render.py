@@ -7,9 +7,15 @@ dataset .json, whose last item gives the image size and intrinsics;
 .parquet files or graphdeco .ply files (the latter need no pandas).
 ``--portrait_mode`` flips the default landscape preset (.pt poses).
 
-Each frame runs ``rasterize(..., rgb_only=True)`` on the card: the tile
-keys are sized to the frame's exact total, so unlike the JAX renderer no
-key capacity is probed up front.
+As the JAX renderer, the renderer first fits a static key capacity: it
+reads the key total of every ``max(1, N // 8)``-th pose (one host sync
+each, before any frame) and takes ``fit_key_cap(worst, headroom=1.15)``.
+A frame is then ``rasterize(..., rgb_only=True, key_cap=...)``, with no
+host sync; on a card it is one CUDA graph replay (``FrameGraph``, the
+counterpart of the JAX renderer's one ``jax.jit``), captured at the first
+frame. A pose whose keys pass the capacity loses the surplus keys, as in
+JAX; such frames are counted on the device and reported once, after the
+last frame. The band render (``--tile_parallel``) sizes its keys exactly.
 
 ``--data_parallel`` spreads the poses over the ranks of a process group
 (rank r renders poses r, r + world, ...; each rank writes its own frames)
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional
@@ -44,6 +51,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.models.scene import (
 from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     Camera,
     RasterizerConfig,
+    key_total,
     pin_f32_matmul,
     rasterize,
 )
@@ -52,6 +60,10 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
     se3_to_qt,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.parallel import multihost as mh
+from taichi_3d_gaussian_splatting_tpu_torch.training.trainer import (
+    capture_graph,
+    fit_key_cap,
+)
 
 TILE = 32
 
@@ -93,10 +105,52 @@ def load_scene(path: str, device) -> scene_lib.GaussianScene:
     return scene_lib.from_parquet(path, config, device=device)
 
 
+class FrameGraph:
+    """``fn(*inputs)``, a frame of fixed shapes whose inputs and outputs
+    are tensors (or a tuple of them), as one ``torch.cuda.CUDAGraph``.
+
+    The inputs are copied into static buffers, and ``fn`` on them is
+    captured by ``trainer.capture_graph`` (one eager warm-up under the
+    sync-debug mode "error", then the capture; no host sync may be left
+    in ``fn``). A call copies its inputs into the buffers, replays, and
+    returns clones of the outputs, which the next replay does not
+    overwrite. In a process group the graph is tracked for
+    ``multihost.shutdown`` to release, as a training window is."""
+
+    def __init__(self, fn, inputs: tuple, dev: torch.device):
+        self.inputs = tuple(x.detach().clone() for x in inputs)
+        self.graph, self.out, self.capture_s = capture_graph(
+            lambda: fn(*self.inputs), dev)
+        if mh.dist.is_initialized():
+            mh.track_window(self)
+
+    def __call__(self, *inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        if isinstance(self.out, tuple):
+            return tuple(x.clone() for x in self.out)
+        return self.out.clone()
+
+    def release(self) -> None:
+        """Free the graph and its static buffers; a second call does
+        nothing. The graph cannot replay afterwards."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.inputs = self.out = None
+        mh.untrack_window(self)
+
+
 class GaussianPointRenderer:
     """Renders every pose of a pose list with one scene, on one device or
     (``data_parallel`` / ``tile_parallel``) on the ranks of the process
-    group, each on its own device (``multihost.rank_device``)."""
+    group, each on its own device (``multihost.rank_device``).
+
+    ``key_cap`` is the fitted key capacity (``_fit_cap``); ``graph`` the
+    one ``FrameGraph`` of ``render`` on a card, captured at the first
+    frame with the ``rcfg`` and ``key_cap`` of that moment (``captures``
+    counts captures); ``over_cap`` is the () int64 device count of frames
+    whose keys passed the capacity."""
 
     def __init__(self, config: RendererConfig, poses: np.ndarray,
                  device="cuda"):
@@ -116,13 +170,62 @@ class GaussianPointRenderer:
         self.rcfg = RasterizerConfig(
             near_plane=0.8, far_plane=1000.0, depth_to_sort_key_scale=100.0,
             tile_size=TILE, rgb_only=config.rgb_only)
+        self.key_cap = self._fit_cap()
+        self.over_cap = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.graph, self.captures = None, 0
+
+    def _fit_cap(self) -> int:
+        """The JAX renderer's ``_fit_cap``: the worst key total over every
+        ``max(1, N // 8)``-th pose (each read to the host, before any
+        frame), with 15% headroom, in ``fit_key_cap``'s buckets.
+        ``candidate_mode`` and ``cand_scale`` steer the TPU kernels only:
+        nothing of them is fitted here."""
+        s = self.scene
+        qs, ts = se3_to_qt(self.poses)
+        stride = max(1, self.poses.shape[0] // 8)
+        worst = max((key_total(s.xyz, s.features, s.invalid, qs[i], ts[i],
+                               self.camera, self.rcfg,
+                               point_object_id=s.object_id)
+                     for i in range(0, self.poses.shape[0], stride)),
+                    default=0)
+        return fit_key_cap(worst, headroom=1.15)
+
+    def render_capped(self, q: torch.Tensor, t: torch.Tensor):
+        """The frame at the fitted capacity, with no host sync: ((H, W, 3)
+        float image in [0, 1], () int64 1 if the pose's keys passed the
+        capacity, else 0)."""
+        s = self.scene
+        out, total = rasterize(s.xyz, s.features, s.invalid, q, t,
+                               self.camera, self.rcfg, sh_max_band=3,
+                               point_object_id=s.object_id,
+                               return_num_keys=True, key_cap=self.key_cap)
+        return (torch.clamp(out.rgb, 0.0, 1.0),
+                (total > self.key_cap).to(torch.int64))
 
     def render(self, q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) float image in [0, 1] of the camera pose (q xyzw, t)."""
-        s = self.scene
-        out = rasterize(s.xyz, s.features, s.invalid, q, t, self.camera,
-                        self.rcfg, sh_max_band=3, point_object_id=s.object_id)
-        return torch.clamp(out.rgb, 0.0, 1.0)
+        """(H, W, 3) float image in [0, 1] of the camera pose (q xyzw, t):
+        ``render_capped`` as one graph replay on a card, eagerly
+        elsewhere; a frame past the capacity adds one to ``over_cap``."""
+        if self.device.type != "cuda":
+            rgb, over = self.render_capped(q, t)
+        else:
+            if self.graph is None:
+                self.graph = FrameGraph(self.render_capped, (q, t),
+                                        self.device)
+                self.captures += 1
+            rgb, over = self.graph(q, t)
+        self.over_cap += over
+        return rgb
+
+    def report_over_cap(self) -> int:
+        """The frames so far whose keys passed the capacity (one host
+        read), printed to stderr if there are any."""
+        n = int(self.over_cap)
+        if n:
+            print(f"render: {n} frame(s) passed the key capacity "
+                  f"{self.key_cap}; their surplus keys were dropped",
+                  file=sys.stderr)
+        return n
 
     @staticmethod
     def _to_frame(rgb: torch.Tensor) -> np.ndarray:
@@ -137,12 +240,11 @@ class GaussianPointRenderer:
         world = mh.world_size()
         if self.config.data_parallel and world > 1:
             yield from self._frames_sharded(qs, ts, world)
-            return
-        if self.config.tile_parallel and world > 1:
+        elif self.config.tile_parallel and world > 1:
             yield from self._frames_band_sharded(qs, ts, world)
-            return
-        if mh.is_main():
+        elif mh.is_main():
             yield from self._frames_plain(qs, ts)
+        self.report_over_cap()
 
     def _frames_plain(self, qs, ts):
         for i in range(self.poses.shape[0]):
@@ -158,7 +260,8 @@ class GaussianPointRenderer:
         """Each frame's tile rows split over the ranks (large single
         images; ``parallel/tile_parallel.py``, which renders up to the next
         multiple of 32 x ranks rows and crops back, so frames keep the
-        requested size), gathered on every rank and yielded on rank 0."""
+        requested size), gathered on every rank and yielded on rank 0.
+        The bands size their keys exactly, eagerly."""
         from taichi_3d_gaussian_splatting_tpu_torch.parallel.tile_parallel import (  # noqa: E501
             rasterize_band_sharded,
         )

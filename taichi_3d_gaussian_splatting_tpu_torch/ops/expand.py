@@ -226,6 +226,8 @@ def slot_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
                  cuda_build.stream_of(offsets))
     cuda_build.check(err, "slot_keys")
     slot_keys.launches += 1
+    if key_total is not None:
+        slot_keys.capped_launches += 1
     return fused, owner
 
 
@@ -293,4 +295,5 @@ def expand_keys(offsets, counts, dkey, base, h, attr_cols, *, total: int,
 
 
 slot_keys.launches = 0
+slot_keys.capped_launches = 0  # of them, those in the capped mode
 sorted_table.launches = 0

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
@@ -50,12 +51,16 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 class RasterizerConfig:
     """The JAX package's RasterizerConfig, field for field.
 
-    ``key_cap`` is the static key capacity of the windowed train step
-    (``trainer.make_train_step`` with ``scan_steps``, and the trainer's
-    ``steps_per_dispatch`` windows, which start from it and refit it): its
-    key buffers are (key_cap,) and the keys past it are dropped, as the JAX
-    package drops them. Every other path sizes its key buffer to the
-    frame's exact total and reads no capacity. ``blend_chunk``,
+    ``key_cap`` here is the JAX package's default; the port reads no
+    capacity from the config. A capacity is passed as ``key_cap=`` to
+    ``rasterize`` (the renderer's graph frame, ``apps/render.py``, at a
+    capacity fitted to its poses) and ``rasterize_fwd_ctx`` (the windowed
+    train step, ``trainer.make_train_step`` with ``scan_steps``, and the
+    trainer's ``steps_per_dispatch`` windows, which start from it and refit
+    it): the key buffers are (key_cap,) and the keys past it are dropped,
+    as the JAX package drops them. Without it a path sizes its key buffer
+    to the frame's exact total (the single step, the viewer, the band
+    render, validation). ``blend_chunk``,
     ``blend_strips``, ``candidate_mode``, ``cand_scale`` and ``interpret``
     size or steer the TPU kernels; they are accepted so that one config
     serves both packages, and ignored here.
@@ -252,6 +257,25 @@ def build_keys(raw: RawAttrs, radius, invalid_mask, camera: Camera,
     return keys, table, visible
 
 
+@torch.no_grad()
+def key_total(xyz, features, invalid_mask, q_pointcloud_camera,
+              t_pointcloud_camera, camera: Camera, cfg: RasterizerConfig,
+              sh_max_band=3, point_object_id=None) -> int:
+    """The frame's tile-key total (before the exact tile cull), read to the
+    host: one sync. What the JAX package's capacity probes read as
+    ``build_keys(...)[0].total``; no kernel runs."""
+    raw, radius = compute_raw_attrs(xyz, features, q_pointcloud_camera,
+                                    t_pointcloud_camera, camera, sh_max_band,
+                                    point_object_id)
+    visible = frustum_cull_mask(
+        raw.uv, raw.depth, invalid_mask, camera.width, camera.height,
+        cfg.near_plane, cfg.far_plane, _cfg_tile(cfg),
+        boundary_tiles_v=cfg.cull_pad_v_tiles)
+    return tiling.point_key_ranges(
+        raw.uv, raw.depth, radius, visible, camera.width, camera.height,
+        _cfg_tile(cfg), cfg.depth_to_sort_key_scale).total
+
+
 def _assemble(out_tiles, camera: Camera, cfg: RasterizerConfig):
     tile = _cfg_tile(cfg)
     tiles_x = camera.width // tile[0]
@@ -286,7 +310,7 @@ def _blend_bwd_impl(raw: RawAttrs, keys: tiling.TileKeys, table, out_tiles,
     # inverse of the sort's permutation
     inv = tiling.inverse_permutation(keys.orig_slot)
     per_point = segment_reduce_sorted(d_table[0:12], inv, keys.offsets,
-                                      keys.counts)
+                                      keys.kept_counts)
     # split d_log(rescale * opacity) into the two exact cotangents
     d_logro = per_point[5]
     n = per_point.shape[1]
@@ -329,9 +353,10 @@ class _BlendCore(torch.autograd.Function):
         conic, opacity, table, out_tiles = ctx.saved_tensors
         raw = RawAttrs(uv=None, cov2d=None, conic=conic, opacity=opacity,
                        color=None, depth=None)
-        d_raw, _ = _blend_bwd_impl(raw, ctx.keys, table, out_tiles,
-                                   d_out_tiles[..., 0:3], ctx.tile,
-                                   ctx.grid_hw, ctx.cfg)
+        with record_function("gs.blend_backward"):
+            d_raw, _ = _blend_bwd_impl(raw, ctx.keys, table, out_tiles,
+                                       d_out_tiles[..., 0:3], ctx.tile,
+                                       ctx.grid_hw, ctx.cfg)
         return (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color,
                 None, None, None, None, None)
 
@@ -341,11 +366,22 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
               t_pointcloud_camera: torch.Tensor, camera: Camera,
               cfg: RasterizerConfig, sh_max_band=3,
               point_object_id: Optional[torch.Tensor] = None,
-              return_num_keys: bool = False):
+              return_num_keys: bool = False,
+              key_cap: Optional[int] = None):
     """Render the scene into a camera view; differentiable with respect to
     xyz, features and the pose (q, t). Requires camera.width/height
     divisible by the tile. With ``return_num_keys`` also returns the number
-    of tile keys of this frame."""
+    of tile keys of this frame: a host int, or with ``key_cap`` the true
+    total as a () int64 device scalar (it may exceed key_cap).
+
+    ``key_cap`` runs the frame on the capped key buffers (``build_keys``):
+    no host sync, so the frame can be captured in a CUDA graph. Above the
+    key total the frame is the exact frame bit for bit; below it the keys
+    past the capacity are dropped, as the JAX package's ``rasterize`` at
+    that ``key_cap`` drops them.
+
+    The stages run inside ``torch.profiler.record_function`` ranges named
+    ``gs.*`` (``tools/profile_attribution.py`` sums device time by them)."""
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
     pin_f32_matmul()
@@ -354,14 +390,19 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
         a.requires_grad for a in (xyz, features, q_pointcloud_camera,
                                   t_pointcloud_camera))
     with torch.set_grad_enabled(needs_grad):
-        raw, radius = compute_raw_attrs(
-            xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera,
-            sh_max_band, point_object_id)
-        keys, table, _ = build_keys(raw, radius, invalid_mask, camera, cfg)
-        out_tiles = _BlendCore.apply(raw.uv, raw.conic, raw.opacity,
-                                     raw.color, table, keys, tile, grid_hw,
-                                     cfg)
-        out = _assemble(out_tiles, camera, cfg)
+        with record_function("gs.attributes"):
+            raw, radius = compute_raw_attrs(
+                xyz, features, q_pointcloud_camera, t_pointcloud_camera,
+                camera, sh_max_band, point_object_id)
+        with record_function("gs.tiling"):
+            keys, table, _ = build_keys(raw, radius, invalid_mask, camera,
+                                        cfg, key_cap)
+        with record_function("gs.blend"):
+            out_tiles = _BlendCore.apply(raw.uv, raw.conic, raw.opacity,
+                                         raw.color, table, keys, tile,
+                                         grid_hw, cfg)
+        with record_function("gs.assemble"):
+            out = _assemble(out_tiles, camera, cfg)
     if return_num_keys:
         return out, keys.total
     return out

@@ -14,10 +14,12 @@ Two sizings of the key buffer:
   sentinel and sort after every tile; if the total exceeds key_cap, the
   surplus keys of the highest-index points (those of slots past key_cap)
   are dropped, as the JAX package drops them (the true total lets the
-  trainer grow the capacity). The per-point counts are clipped on the
-  device to the keys kept, so the backward's segment sum walks only slots
-  below key_cap. With key_cap above the total, the sorted keys, table rows
-  and tile ranges of the live keys are the exact path's.
+  trainer grow the capacity). ``TileKeys.counts`` stays the JAX package's
+  unclipped per-point count (the ``num_overlap_tiles`` statistic);
+  ``TileKeys.kept_counts`` is clipped on the device to the keys kept, so
+  the backward's segment sum walks only slots below key_cap. With key_cap
+  above the total, the sorted keys, table rows and tile ranges of the live
+  keys are the exact path's, and so is every frame blended from them.
 
 What matches the JAX package exactly: the per-point counts, offsets and
 total; the fused key ``tid << dbits | dkey`` with the truncating
@@ -117,8 +119,11 @@ class TileKeys(NamedTuple):
     tile_start: torch.Tensor  # (num_tiles,) int32
     tile_end: torch.Tensor    # (num_tiles,) int32
     offsets: torch.Tensor     # (N,) int32 exclusive cumsum of counts
-    counts: torch.Tensor      # (N,) int32 per-point key counts (masked;
-                              # capped: the keys kept below key_cap)
+    counts: torch.Tensor      # (N,) int32 per-point key counts (masked),
+                              # the JAX package's, kept or dropped
+    kept_counts: torch.Tensor # (N,) int32 the keys of each point below
+                              # key_cap (the segment sum's lengths); the
+                              # counts themselves on the exact path
     total: Union[int, torch.Tensor]  # number of keys: a host int, or on
                               # the capped path a () int64 device scalar,
                               # the true total (may exceed key_cap)
@@ -215,18 +220,17 @@ def build_tile_keys_and_table(
         fused_s, perm, owner, att, tiles_u=tiles_u, tile_w=tile_w,
         tile_h=tile_h, dbits=dbits, sentinel=sentinel)
     bounds = histogram_mod.tile_ranges(fused_s, dbits, num_tiles)
-    counts = r.counts
+    kept = r.counts
     if capped:
         # the keys each point keeps below key_cap: min(end, cap) -
         # min(start, cap) of its slot range
         end = r.offsets.long() + r.counts
-        counts = (torch.clamp_max(end, key_cap)
-                  - torch.clamp_max(r.offsets.long(), key_cap)).to(
-                      torch.int32)
+        kept = (torch.clamp_max(end, key_cap)
+                - torch.clamp_max(r.offsets.long(), key_cap)).to(torch.int32)
     keys = TileKeys(
         fused=fused_s, orig_slot=perm, tile_start=bounds[:-1],
-        tile_end=bounds[1:], offsets=r.offsets, counts=counts,
-        total=r.total,
+        tile_end=bounds[1:], offsets=r.offsets, counts=r.counts,
+        kept_counts=kept, total=r.total,
     )
     return keys, table_s
 

@@ -563,27 +563,62 @@ def window_mode(dev: torch.device) -> str:
     return "graph"
 
 
+def capture_graph(run, dev: torch.device, collectives: bool = False):
+    """``run()`` (a callable of no arguments reading and writing only
+    buffers it keeps at fixed addresses) as one ``torch.cuda.CUDAGraph``:
+    (graph, what the captured ``run()`` returned, capture seconds).
+
+    One eager ``run()`` comes first: it builds the kernels and runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any host sync left in
+    it raises here rather than breaking the capture. Then ``run()`` is
+    captured once. A failed capture raises; there is no eager fallback.
+
+    In a process group the capture is "thread_local": the group's
+    watchdog thread queries the events of earlier collectives, which the
+    default "global" mode forbids to every thread while a capture runs.
+    With ``collectives`` (``run`` holds some) the communicator is warmed by
+    one eager collective first, so every rank must capture together."""
+    import torch.distributed as dist
+
+    capture_mode = "global"
+    if dist.is_initialized():
+        if collectives:
+            from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+                multihost as mh,
+            )
+
+            mh.warm_communicator(dev)
+        capture_mode = "thread_local"
+    torch.cuda.synchronize(dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, capture_error_mode=capture_mode):
+        out = run()
+    return graph, out, time.perf_counter() - t0
+
+
 class _CapturedWindow:
     """A window of k steps as one ``torch.cuda.CUDAGraph``, for one
     (sh_band, pool capacity, image dtype, pose rows).
 
-    It keeps static buffers for the window's inputs and for the state.
-    One eager run of the steps on them comes first: it builds the kernels
-    and runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
-    host sync left in the step raises here rather than breaking the
-    capture. Then the steps are captured once, ending with copies of the
-    new state into the static state, so each replay moves that state on by
-    k steps in place. A failed capture raises; there is no eager
-    fallback.
+    It keeps static buffers for the window's inputs and for the state,
+    and captures the steps on them (``capture_graph``: one eager warm-up
+    under the sync-debug mode "error", then the capture), ending with
+    copies of the new state into the static state, so each replay moves
+    that state on by k steps in place.
 
     In an NCCL process group (``window_mode``) the steps' collectives are
-    captured with them. The communicator is warmed by one eager collective
-    first, and the capture is "thread_local": the process group's watchdog
-    thread queries the events of earlier collectives, which the default
-    "global" mode forbids to every thread while a capture runs. Such a
-    window is tracked (``multihost.track_window``): ``multihost.shutdown``
-    releases it before the group goes. ``release`` frees the graph and
-    its pool at once, wherever it is called."""
+    captured with them. Such a window is tracked
+    (``multihost.track_window``): ``multihost.shutdown`` releases it
+    before the group goes. ``release`` frees the graph and its pool at
+    once, wherever it is called."""
 
     def __init__(self, run, state: TrainState, inputs: tuple, sh_band):
         import torch.distributed as dist
@@ -592,30 +627,21 @@ class _CapturedWindow:
         self.inputs = tuple(None if x is None else x.detach().clone()
                             for x in inputs)
         self.state = _tree_map(lambda x: x.detach().clone(), state)
-        capture_mode = "global"
+
+        def steps():
+            # the warm-up moves the static state on too: every call copies
+            # the caller's state in before its replay
+            new_state, metrics, aux = run(self.state, *self.inputs, sh_band)
+            _tree_map(_copy_in, self.state, new_state)
+            return metrics, aux
+
+        self.graph, (self.metrics, self.aux), self.capture_s = capture_graph(
+            steps, dev, collectives=True)
         if dist.is_initialized():
             from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
                 multihost as mh,
             )
 
-            mh.warm_communicator(dev)
-            capture_mode = "thread_local"
-        torch.cuda.synchronize(dev)
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            run(self.state, *self.inputs, sh_band)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, capture_error_mode=capture_mode):
-            new_state, self.metrics, self.aux = run(
-                self.state, *self.inputs, sh_band)
-            _tree_map(_copy_in, self.state, new_state)
-        self.capture_s = time.perf_counter() - t0
-        if dist.is_initialized():
             mh.track_window(self)
 
     def __call__(self, state: TrainState, inputs: tuple):

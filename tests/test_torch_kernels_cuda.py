@@ -180,6 +180,48 @@ def test_sorted_table_matches_plain(dev, tile, exact_cull, nonfinite):
 # a warp takes an 8x4 pixel block where the shape allows, so its cull
 # rectangle spans rows at every shape; (48, 2) falls back to row-major
 # warps that span rows, (12, 4) also to a partial last warp
+def test_render_graph_frame_is_the_capped_and_the_exact_frame(dev,
+                                                              tmp_path):
+    """The renderer's frame, one CUDA graph replay at the fitted key
+    capacity, is bit for bit the eager capped frame and the exact frame;
+    a replay after a new pose gives that pose's frame, and a returned
+    frame outlives the next replay."""
+    from taichi_3d_gaussian_splatting_tpu_torch.apps import render
+    from taichi_3d_gaussian_splatting_tpu_torch.models import scene as sl
+
+    xyz, feats, invalid = make_scene(200, 7)
+    ply = str(tmp_path / "scene.ply")
+    sl.to_ply(sl.create_scene(xyz[~invalid], sl.SceneConfig(),
+                              features=feats[~invalid], device="cpu"), ply)
+    turn = np.eye(4, dtype=np.float32)
+    turn[:3, :3] = [[np.cos(0.08), 0, np.sin(0.08)], [0, 1, 0],
+                    [-np.sin(0.08), 0, np.cos(0.08)]]
+    turn[:3, 3] = [0.1, -0.05, -0.3]
+    r = render.GaussianPointRenderer(
+        render.RendererConfig(parquet_paths=[ply], image_height=64,
+                              image_width=64, camera_intrinsics=make_K()),
+        np.stack([np.eye(4, dtype=np.float32), turn]), device=dev)
+    qs, ts = render.se3_to_qt(r.poses)
+    s = r.scene
+    frames = []
+    for i in (0, 1, 0):
+        got = r.render(qs[i], ts[i])
+        eager, over = r.render_capped(qs[i], ts[i])
+        exact = torch.clamp(R.rasterize(
+            s.xyz, s.features, s.invalid, qs[i], ts[i], r.camera, r.rcfg,
+            point_object_id=s.object_id).rgb, 0.0, 1.0)
+        assert torch.equal(got, eager) and torch.equal(got, exact), i
+        assert int(over) == 0
+        frames.append(got)
+    assert r.captures == 1 and r.graph is not None
+    assert not torch.equal(frames[0], frames[1])
+    assert torch.equal(frames[0], frames[2])
+    kept = frames[1].clone()
+    r.render(qs[0], ts[0])
+    assert torch.equal(frames[1], kept)
+    assert int(r.over_cap) == 0
+
+
 @pytest.mark.parametrize("tile", [(32, 32), (32, 16), (32, 8), (16, 16),
                                   (48, 2), (12, 4)])
 @pytest.mark.parametrize("rgb_only", [False, True])

@@ -106,12 +106,14 @@ def test_capped_keys_match_jax(cap, exact_tile_cull):
     # then the padding (and past the cap, nothing)
     np.testing.assert_array_equal(keys.orig_slot.numpy(),
                                   np.asarray(jkeys.orig_slot))
-    # the counts are clipped to the keys kept below the cap (JAX keeps the
-    # unclipped counts; its segment sum reads no lane past the cap)
+    # the counts are JAX's, unclipped (num_overlap_tiles); the kept counts
+    # are clipped to the keys below the cap (the segment sum's lengths:
+    # JAX's segment sum reads no lane past the cap)
     off, cnt = np.asarray(jkeys.offsets), np.asarray(jkeys.counts)
+    np.testing.assert_array_equal(keys.counts.numpy(), cnt)
     kept = np.minimum(off + cnt, cap) - np.minimum(off, cap)
-    np.testing.assert_array_equal(keys.counts.numpy(), kept)
-    assert (keys.counts.numpy() < cnt).any() == (total > cap)
+    np.testing.assert_array_equal(keys.kept_counts.numpy(), kept)
+    assert (keys.kept_counts.numpy() < cnt).any() == (total > cap)
     # tile by tile: the table rows of each tile's keys (row 5 is each
     # package's own f32 log, as in test_torch_tiling)
     live = int(keys.tile_end[-1])
@@ -141,7 +143,8 @@ def test_capped_keys_above_total_are_the_exact_keys(cap):
                                   exact.orig_slot.numpy())
     np.testing.assert_array_equal(table[:, :total].numpy(),
                                   exact_table.numpy())
-    for name in ("tile_start", "tile_end", "offsets", "counts"):
+    for name in ("tile_start", "tile_end", "offsets", "counts",
+                 "kept_counts"):
         np.testing.assert_array_equal(getattr(keys, name).numpy(),
                                       getattr(exact, name).numpy())
     sentinel = int(exact.fused.max())
@@ -226,6 +229,25 @@ def test_capped_step_matches_jax(cap):
         np.testing.assert_allclose(got, want, **GATE)
     np.testing.assert_allclose(ta["pred"].numpy(), np.asarray(ja["pred"]),
                                rtol=0, atol=1e-4)
+    # the densification statistics while keys drop, at the gates of
+    # test_torch_rasterizer_stats: num_overlap_tiles counts every key of a
+    # point, kept or dropped, as JAX's does
+    got, want = ta["stats"], ja["stats"]
+    assert got._fields == want._fields
+    np.testing.assert_array_equal(got.num_overlap_tiles.numpy(),
+                                  np.asarray(want.num_overlap_tiles))
+    assert int(got.num_overlap_tiles.sum()) == total
+    np.testing.assert_array_equal(got.in_camera.numpy(),
+                                  np.asarray(want.in_camera))
+    np.testing.assert_allclose(got.grad_uv.numpy(), np.asarray(want.grad_uv),
+                               **GATE)
+    for f in ("magnitude_grad_viewspace", "num_affected_pixels"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=8e-3,
+                                   atol=1e-12)
+    np.testing.assert_allclose(
+        got.magnitude_grad_viewspace_on_image.numpy(),
+        np.asarray(want.magnitude_grad_viewspace_on_image), rtol=0, atol=1e-4)
 
 
 def test_capped_step_above_total_is_the_exact_step():
