@@ -48,6 +48,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.models.scene import (
     SceneConfig,
     merge_scenes,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops import stages
 from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     Camera,
     RasterizerConfig,
@@ -112,25 +113,27 @@ class FrameGraph:
     The inputs are copied into static buffers, and ``fn`` on them is
     captured by ``trainer.capture_graph`` (one eager warm-up under the
     sync-debug mode "error", then the capture; no host sync may be left
-    in ``fn``). A call copies its inputs into the buffers, replays, and
-    returns clones of the outputs, which the next replay does not
-    overwrite. In a process group the graph is tracked for
+    in ``fn``). A call (``gs.replay``) copies its inputs into the buffers,
+    replays, and returns clones of the outputs, which the next replay does
+    not overwrite; ``stages`` is the capture's record, a unit a frame. In a
+    process group the graph is tracked for
     ``multihost.shutdown`` to release, as a training window is."""
 
     def __init__(self, fn, inputs: tuple, dev: torch.device):
         self.inputs = tuple(x.detach().clone() for x in inputs)
-        self.graph, self.out, self.capture_s = capture_graph(
+        self.graph, self.out, self.capture_s, self.stages = capture_graph(
             lambda: fn(*self.inputs), dev)
         if mh.dist.is_initialized():
             mh.track_window(self)
 
     def __call__(self, *inputs):
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
-        self.graph.replay()
-        if isinstance(self.out, tuple):
-            return tuple(x.clone() for x in self.out)
-        return self.out.clone()
+        with stages.stage("gs.replay"):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src)
+            stages.replay(self.graph, self.stages)
+            if isinstance(self.out, tuple):
+                return tuple(x.clone() for x in self.out)
+            return self.out.clone()
 
     def release(self) -> None:
         """Free the graph and its static buffers; a second call does
@@ -229,7 +232,8 @@ class GaussianPointRenderer:
 
     @staticmethod
     def _to_frame(rgb: torch.Tensor) -> np.ndarray:
-        return torch.round(rgb * 255).to(torch.uint8).cpu().numpy()
+        with stages.stage("gs.to_frame"):
+            return torch.round(rgb * 255).to(torch.uint8).cpu().numpy()
 
     def frames(self):
         """Yield (index, (H, W, 3) uint8 numpy frame) for every pose this

@@ -32,7 +32,6 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
@@ -44,6 +43,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.packing import round_bf16
 from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (
     segment_reduce_sorted,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops.stages import stage
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 
 
@@ -353,7 +353,7 @@ class _BlendCore(torch.autograd.Function):
         conic, opacity, table, out_tiles = ctx.saved_tensors
         raw = RawAttrs(uv=None, cov2d=None, conic=conic, opacity=opacity,
                        color=None, depth=None)
-        with record_function("gs.blend_backward"):
+        with stage("gs.blend_backward"):
             d_raw, _ = _blend_bwd_impl(raw, ctx.keys, table, out_tiles,
                                        d_out_tiles[..., 0:3], ctx.tile,
                                        ctx.grid_hw, ctx.cfg)
@@ -380,8 +380,9 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
     past the capacity are dropped, as the JAX package's ``rasterize`` at
     that ``key_cap`` drops them.
 
-    The stages run inside ``torch.profiler.record_function`` ranges named
-    ``gs.*`` (``tools/profile_attribution.py`` sums device time by them)."""
+    The stages run inside ``ops.stages.stage`` ranges named ``gs.*``
+    (``tools/profile_attribution.py`` sums device time by them; inside a
+    graph capture they also mark the graph's replays on the device)."""
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
     pin_f32_matmul()
@@ -390,18 +391,18 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
         a.requires_grad for a in (xyz, features, q_pointcloud_camera,
                                   t_pointcloud_camera))
     with torch.set_grad_enabled(needs_grad):
-        with record_function("gs.attributes"):
+        with stage("gs.attributes"):
             raw, radius = compute_raw_attrs(
                 xyz, features, q_pointcloud_camera, t_pointcloud_camera,
                 camera, sh_max_band, point_object_id)
-        with record_function("gs.tiling"):
+        with stage("gs.tiling"):
             keys, table, _ = build_keys(raw, radius, invalid_mask, camera,
                                         cfg, key_cap)
-        with record_function("gs.blend"):
+        with stage("gs.blend"):
             out_tiles = _BlendCore.apply(raw.uv, raw.conic, raw.opacity,
                                          raw.color, table, keys, tile,
                                          grid_hw, cfg)
-        with record_function("gs.assemble"):
+        with stage("gs.assemble"):
             out = _assemble(out_tiles, camera, cfg)
     if return_num_keys:
         return out, keys.total
@@ -427,17 +428,21 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
     q = q_pointcloud_camera.detach().requires_grad_(with_pose_grads)
     t = t_pointcloud_camera.detach().requires_grad_(with_pose_grads)
     inputs = (x, f, q, t) if with_pose_grads else (x, f)
-    with torch.enable_grad():
+    with torch.enable_grad(), stage("gs.attributes"):
         raw, radius = compute_raw_attrs(x, f, q, t, camera, sh_max_band,
                                         point_object_id)
     with torch.no_grad():
         # radius only feeds the tiling stage: it is cut from the graph
         raw_values = RawAttrs(*(a.detach() for a in raw))
-        keys, table, visible = build_keys(raw_values, radius.detach(),
-                                          invalid_mask, camera, cfg, key_cap)
-        out_tiles = _blend(table, keys, tile, (camera.width // tile[0],
-                                               camera.height // tile[1]), cfg)
-        out = _assemble(out_tiles, camera, cfg)
+        with stage("gs.tiling"):
+            keys, table, visible = build_keys(raw_values, radius.detach(),
+                                              invalid_mask, camera, cfg,
+                                              key_cap)
+        with stage("gs.blend"):
+            out_tiles = _blend(table, keys, tile,
+                               (camera.width // tile[0],
+                                camera.height // tile[1]), cfg)
+            out = _assemble(out_tiles, camera, cfg)
     ctx = RenderContext(raw=raw_values, keys=keys, table=table,
                         out_tiles=out_tiles, visible=visible)
 
@@ -458,18 +463,20 @@ def rasterize_bwd(ctx: RenderContext, attrs_vjp, d_rgb: torch.Tensor,
     tile = _cfg_tile(cfg)
     tiles_x = camera.width // tile[0]
     tiles_y = camera.height // tile[1]
-    with torch.no_grad():
+    with torch.no_grad(), stage("gs.blend_backward"):
         d_rgb_tiles = _image_to_tiles(d_rgb, tiles_x, tiles_y, tile)
         d_raw, (mag, npix, imggrad_tiles) = _blend_bwd_impl(
             ctx.raw, ctx.keys, ctx.table, ctx.out_tiles, d_rgb_tiles, tile,
             (tiles_x, tiles_y), cfg)
-    grads = attrs_vjp(d_raw)
-    if cfg.slim:
-        # the slim path skips the per-pixel |grad_uv| image
-        imggrad_img = torch.zeros((1, 1, 2), dtype=torch.float32,
-                                  device=d_rgb.device)
-    else:
-        imggrad_img = _tiles_to_image(imggrad_tiles, tiles_x, tiles_y, tile)
+        if cfg.slim:
+            # the slim path skips the per-pixel |grad_uv| image
+            imggrad_img = torch.zeros((1, 1, 2), dtype=torch.float32,
+                                      device=d_rgb.device)
+        else:
+            imggrad_img = _tiles_to_image(imggrad_tiles, tiles_x, tiles_y,
+                                          tile)
+    with stage("gs.attributes_vjp"):
+        grads = attrs_vjp(d_raw)
     stats = GradStats(
         grad_uv=d_raw.uv,
         magnitude_grad_viewspace=mag,

@@ -5,10 +5,14 @@ Port of ``benchmark/profile_attribution.py``: the same seeded scene
 plus ``--device``. The JAX script sums device time by source line; here
 device time (kernels, copies, sets) is summed a run by kernel name, and
 by the stage of ``rasterize`` that launched it: the innermost
-``record_function`` range named ``gs.*`` around the launch (``gs.attributes``,
-``gs.tiling``, ``gs.blend``, ``gs.assemble``, ``gs.blend_backward``; a
-launch outside them, such as the autograd of the attributes, counts as
-``(unmarked)``).
+``ops.stages.stage`` range (a ``record_function`` range) named ``gs.*``
+around the launch (``gs.attributes``, ``gs.tiling``, ``gs.blend``,
+``gs.assemble``, ``gs.blend_backward``; a launch outside them, such as the
+autograd of the attributes, counts as ``(unmarked)``). The train step's
+stages (``gs.loss``, ``gs.attributes_vjp``, ``gs.update``,
+``gs.state_copy``) and the replay calls' (``gs.replay``, ``gs.to_frame``)
+do not run here; under graph replay the stages are read by
+``ops.stages.read()``.
 
     python -m taichi_3d_gaussian_splatting_tpu_torch.tools.profile_attribution \\
         [--points 428000] [--runs 3] [--grad | --rgb-only] [--fit-cap] \\

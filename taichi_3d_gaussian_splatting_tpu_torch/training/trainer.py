@@ -78,6 +78,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     rasterize_bwd,
     rasterize_fwd_ctx,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops import stages
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
     apply_pose_delta,
     quaternion_to_rotation_matrix,
@@ -340,25 +341,24 @@ def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
         with_pose_grads=refine, key_cap=key_cap)
     if band is not None:
         out = band.gather(out)
-    pred = torch.clamp(out.rgb, 0.0, 1.0)
-
-    p = pred.detach().requires_grad_(True)
-    f = scene.features.detach().requires_grad_(True)
-    with torch.enable_grad():
-        loss, l1, ssim_v = compute_loss(p, image_gt, lcfg, features=f,
-                                        invalid_mask=scene.invalid)
-        d_pred, d_feat_reg = torch.autograd.grad(loss, (p, f),
-                                                 allow_unused=True)
-    if d_feat_reg is None:  # no regularizer
-        d_feat_reg = torch.zeros_like(scene.features)
-
-    with torch.no_grad():
-        # the clamp's backward: zero where it was active, and at the
-        # bounds (empty pixels sit at exactly 0)
-        pass_mask = (out.rgb > 0.0) & (out.rgb < 1.0)
-        d_rgb = torch.where(pass_mask, d_pred, torch.zeros_like(d_pred))
-        if band is not None:
-            d_rgb = band.rows(d_rgb)
+    with stages.stage("gs.loss"):
+        pred = torch.clamp(out.rgb, 0.0, 1.0)
+        p = pred.detach().requires_grad_(True)
+        f = scene.features.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, l1, ssim_v = compute_loss(p, image_gt, lcfg, features=f,
+                                            invalid_mask=scene.invalid)
+            d_pred, d_feat_reg = torch.autograd.grad(loss, (p, f),
+                                                     allow_unused=True)
+        if d_feat_reg is None:  # no regularizer
+            d_feat_reg = torch.zeros_like(scene.features)
+        with torch.no_grad():
+            # the clamp's backward: zero where it was active, and at the
+            # bounds (empty pixels sit at exactly 0)
+            pass_mask = (out.rgb > 0.0) & (out.rgb < 1.0)
+            d_rgb = torch.where(pass_mask, d_pred, torch.zeros_like(d_pred))
+            if band is not None:
+                d_rgb = band.rows(d_rgb)
     grads, stats = rasterize_bwd(ctx, attrs_vjp, d_rgb, cam_pass, cfg_pass)
     if band is not None:
         grads, stats = band.reduce(grads, stats, ctx.keys.total)
@@ -367,7 +367,8 @@ def camera_pass(scene: GaussianScene, image_gt, q, t, camera: Camera,
     if refine:
         d_q, d_t = grads[2], grads[3]
         (d_delta,) = torch.autograd.grad((q_used, t_used), delta, (d_q, d_t))
-    with torch.no_grad():
+    with torch.no_grad(), stages.stage("gs.update"):
+        # the grad factors: the first part of the update
         d_features = d_features * gf[None, :] + d_feat_reg
         # never move invalid slots
         valid = ~scene.invalid[:, None]
@@ -490,23 +491,27 @@ def make_train_step(config: TrainConfig, height: int, width: int,
                                 cfg_band, rcfg)
         cp = camera_pass(scene, image_gt, q, t, camera, rcfg, lcfg, gf,
                          sh_band, delta, band, key_cap)
-        pose, pose_aux = None, {}
-        if pose_refine:
+        with stages.stage("gs.update"):
+            pose, pose_aux = None, {}
+            if pose_refine:
+                with torch.no_grad():
+                    pose = _pose_adam_row(state, pose_idx, cp.d_delta,
+                                          config.pose_learning_rate)
+                pose_aux = {"grad_q": cp.d_q, "grad_t": cp.d_t,
+                            "grad_pose": cp.d_delta}
             with torch.no_grad():
-                pose = _pose_adam_row(state, pose_idx, cp.d_delta,
-                                      config.pose_learning_rate)
-            pose_aux = {"grad_q": cp.d_q, "grad_t": cp.d_t,
-                        "grad_pose": cp.d_delta}
-        with torch.no_grad():
-            ctrl_state = ctrl.accumulate(
-                state.ctrl, cp.stats.in_camera, cp.stats.num_affected_pixels,
-                cp.stats.magnitude_grad_viewspace, cp.d_xyz)
-            metrics = {
-                "loss": cp.loss, "l1": cp.l1, "ssim": cp.ssim,
-                "psnr": psnr_fn(cp.pred, image_gt),
-                "num_keys": (cp.ctx.keys.total if band is None
-                             else band.num_keys),
-            }
+                ctrl_state = ctrl.accumulate(
+                    state.ctrl, cp.stats.in_camera,
+                    cp.stats.num_affected_pixels,
+                    cp.stats.magnitude_grad_viewspace, cp.d_xyz)
+                metrics = {
+                    "loss": cp.loss, "l1": cp.l1, "ssim": cp.ssim,
+                    "psnr": psnr_fn(cp.pred, image_gt),
+                    "num_keys": (cp.ctx.keys.total if band is None
+                                 else band.num_keys),
+                }
+            new_state = apply_grads(state, optimizers, cp.d_xyz,
+                                    cp.d_features, ctrl_state, pose)
         aux = {
             "pred": cp.pred, "depth": cp.out.depth, "count": cp.out.count,
             "stats": cp.stats, "point_depth": cp.ctx.raw.depth,
@@ -516,8 +521,6 @@ def make_train_step(config: TrainConfig, height: int, width: int,
         if band is not None:
             aux["band_keys"] = cp.ctx.keys.total
             step.collectives = band.log
-        new_state = apply_grads(state, optimizers, cp.d_xyz, cp.d_features,
-                                ctrl_state, pose)
         return new_state, metrics, aux
 
     step.collectives = []
@@ -566,7 +569,9 @@ def window_mode(dev: torch.device) -> str:
 def capture_graph(run, dev: torch.device, collectives: bool = False):
     """``run()`` (a callable of no arguments reading and writing only
     buffers it keeps at fixed addresses) as one ``torch.cuda.CUDAGraph``:
-    (graph, what the captured ``run()`` returned, capture seconds).
+    (graph, what the captured ``run()`` returned, capture seconds, the
+    capture's ``ops.stages.Record``: the device marks of its ``gs.*``
+    stages, which ``stages.replay`` reads under a profiler).
 
     One eager ``run()`` comes first: it builds the kernels and runs under
     ``torch.cuda.set_sync_debug_mode("error")``, so any host sync left in
@@ -591,17 +596,19 @@ def capture_graph(run, dev: torch.device, collectives: bool = False):
         capture_mode = "thread_local"
     torch.cuda.synchronize(dev)
     mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        run()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-    torch.cuda.synchronize(dev)
-    graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph, capture_error_mode=capture_mode):
-        out = run()
-    return graph, out, time.perf_counter() - t0
+    with stages.capturing() as record:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()  # counts the stage marks of the capture
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        record.allocate(dev)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, capture_error_mode=capture_mode):
+            out = run()
+    return graph, out, time.perf_counter() - t0, record
 
 
 class _CapturedWindow:
@@ -611,8 +618,9 @@ class _CapturedWindow:
     It keeps static buffers for the window's inputs and for the state,
     and captures the steps on them (``capture_graph``: one eager warm-up
     under the sync-debug mode "error", then the capture), ending with
-    copies of the new state into the static state, so each replay moves
-    that state on by k steps in place.
+    copies of the new state into the static state (``gs.state_copy``), so
+    each replay moves that state on by k steps in place. ``stages`` is the
+    capture's record, a unit a step.
 
     In an NCCL process group (``window_mode``) the steps' collectives are
     captured with them. Such a window is tracked
@@ -632,11 +640,12 @@ class _CapturedWindow:
             # the warm-up moves the static state on too: every call copies
             # the caller's state in before its replay
             new_state, metrics, aux = run(self.state, *self.inputs, sh_band)
-            _tree_map(_copy_in, self.state, new_state)
+            with stages.stage("gs.state_copy"):
+                _tree_map(_copy_in, self.state, new_state)
             return metrics, aux
 
-        self.graph, (self.metrics, self.aux), self.capture_s = capture_graph(
-            steps, dev, collectives=True)
+        (self.graph, (self.metrics, self.aux), self.capture_s,
+         self.stages) = capture_graph(steps, dev, collectives=True)
         if dist.is_initialized():
             from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
                 multihost as mh,
@@ -645,14 +654,15 @@ class _CapturedWindow:
             mh.track_window(self)
 
     def __call__(self, state: TrainState, inputs: tuple):
-        for dst, src in zip(self.inputs, inputs):
-            if dst is not None:
-                dst.copy_(src)
-        _tree_map(_copy_in, self.state, state)
-        self.graph.replay()
-        # the metrics outlive the next replay (the trainer keeps losses)
-        return (self.state, {k: v.clone() for k, v in self.metrics.items()},
-                self.aux)
+        with stages.stage("gs.replay"):
+            for dst, src in zip(self.inputs, inputs):
+                if dst is not None:
+                    dst.copy_(src)
+            _tree_map(_copy_in, self.state, state)
+            stages.replay(self.graph, self.stages)
+            # the metrics outlive the next replay (the trainer keeps losses)
+            return (self.state,
+                    {k: v.clone() for k, v in self.metrics.items()}, self.aux)
 
     def release(self) -> None:
         """Reset the graph and drop the static inputs, state, metrics and
@@ -690,6 +700,7 @@ class _Window:
         rows = []
         aux = None
         for i in range(self.k):
+            stages.set_unit(i)
             extra = () if idxs is None else (idxs[i],)
             state, m, aux = self.step(state, images[i], qs[i], ts[i], Ks[i],
                                       sh_band, *extra)
