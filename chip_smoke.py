@@ -377,6 +377,7 @@ class Frame:
         self.num_tiles = self.tiles_x * self.tiles_y
         self.dbits = tiling._depth_bits(self.num_tiles)
         raw, radius = R.compute_raw_attrs(xyz, feats, q, t, camera)
+        self.attr_args = (xyz, feats, q, t, camera.K)
         visible = R.frustum_cull_mask(
             raw.uv, raw.depth, invalid, camera.width, camera.height,
             cfg.near_plane, cfg.far_plane, self.tile)
@@ -623,7 +624,8 @@ def stage_ms(renderer, q, t) -> dict:
     reps = 20
     out = {}
     out["attributes (projection, EWA, SH)"] = both_ms(
-        lambda: R.compute_raw_attrs(s.xyz, s.features, q, t, cam), reps, EW)
+        lambda: R.compute_raw_attrs(s.xyz, s.features, q, t, cam), reps,
+        ("point_attributes_kernel",))
     raw, radius = R.compute_raw_attrs(s.xyz, s.features, q, t, cam)
     cull = lambda: R.frustum_cull_mask(  # noqa: E731
         raw.uv, raw.depth, s.invalid, cam.width, cam.height, cfg.near_plane,
@@ -913,10 +915,30 @@ def check_expand(frame: Frame, label: str, first) -> float:
     return max(max_abs(a, b) for a, b in pairs.values())
 
 
+def check_attributes(frame: Frame, label: str) -> float:
+    """The point-attributes kernel against its plain version: every field
+    bit for bit, NaN where it has NaN."""
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import attributes as A
+
+    with torch.no_grad():
+        got = A.point_attributes(*frame.attr_args)
+        want = A.point_attributes_plain(*frame.attr_args)
+    torch.cuda.synchronize()
+    differ = sum(int((~(torch.eq(g, w) | (g.isnan() & w.isnan()))).sum())
+                 for g, w in zip(got, want))
+    print(f"  {label} point_attributes: {differ} of "
+          f"{sum(g.numel() for g in got)} values differ from the plain "
+          f"version", flush=True)
+    if differ:
+        raise AssertionError(f"{label}: point_attributes differs")
+    return 0.0
+
+
 def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
     from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, histogram
 
-    errs = {"expand_keys": check_expand(frame, label, first)}
+    errs = {"point_attributes": check_attributes(frame, label),
+            "expand_keys": check_expand(frame, label, first)}
 
     ids = frame.tile_ids
     fused = frame.keys.fused
@@ -1646,7 +1668,8 @@ def plain_route():
     )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 
-    swaps = [(expand, "slot_keys", expand.slot_keys_plain),
+    swaps = [(R, "point_attributes", R.point_attributes_plain),
+             (expand, "slot_keys", expand.slot_keys_plain),
              (expand, "sorted_table", expand.sorted_table_plain),
              (histogram, "tile_ranges", histogram.tile_ranges_plain),
              (blend, "blend_forward", blend.blend_forward_plain),

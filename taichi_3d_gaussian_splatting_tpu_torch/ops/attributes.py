@@ -1,7 +1,11 @@
-"""Per-point screen-space attributes over every pool slot, dense torch.
+"""Per-point screen-space attributes over every pool slot.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/attributes.py``. Invalid and
 invisible slots are projected too and masked downstream.
+``compute_point_attributes`` is dense torch (the autograd path);
+``point_attributes`` computes what the rasterizer's attribute stage needs
+of a frame without gradient: CUDA tensors go to its kernel in
+``csrc/attributes.cu``, CPU tensors to ``point_attributes_plain``.
 
 Feature layout:
   feat[0:4]   quaternion xyzw
@@ -13,13 +17,16 @@ Feature layout:
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple, Union
+import ctypes
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build
 from taichi_3d_gaussian_splatting_tpu_torch.ops import projection as proj
 from taichi_3d_gaussian_splatting_tpu_torch.ops.sh import sh_basis
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
+    inverse_qt,
     quaternion_to_rotation_matrix,
 )
 
@@ -99,6 +106,96 @@ def _sh_band_mask(max_band: int, dtype, device) -> torch.Tensor:
     no host copy (which a CUDA graph could not capture) feeds the step."""
     keep = (int(max_band) + 1) ** 2
     return (torch.arange(len(_COEFF_BAND), device=device) < keep).to(dtype)
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def point_attributes_plain(xyz, features, q_pc, t_pc, K, sh_max_band=3,
+                           row0=0, point_object_id=None):
+    """Plain PyTorch version of :func:`point_attributes` (same contract);
+    differentiable with respect to xyz, features and the pose."""
+    if point_object_id is not None and q_pc.dim() == 2:
+        idx = point_object_id.long()
+        q, t = q_pc[idx], t_pc[idx]
+    else:
+        q, t = q_pc.reshape(4), t_pc.reshape(3)
+    q_cw, t_cw = inverse_qt(q, t)
+    a = compute_point_attributes(xyz, features, q_cw, t_cw, K, t, sh_max_band)
+    uv = a.uv
+    if row0:
+        uv = uv - uv.new_tensor([0.0, float(row0)])
+    return (uv, a.cov2d, a.conic, a.opacity, a.color, a.xyz_cam[:, 2],
+            a.radius_xy)
+
+
+def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
+                     q_pc: torch.Tensor, t_pc: torch.Tensor, K: torch.Tensor,
+                     sh_max_band: int = 3, row0: int = 0,
+                     point_object_id: Optional[torch.Tensor] = None):
+    """Every pool slot's blend inputs of the camera pose (q_pc xyzw, t_pc)
+    in the world frame, shapes (4,)/(3,), or per-object poses (K, 4)/(K, 3)
+    picked by ``point_object_id``: (uv (N, 2) with v less ``row0``, cov2d
+    (N, 3), conic (N, 4), opacity (N,), color (N, 3), depth (N,), radius_xy
+    (N, 2)), all f32. Takes no gradient: it raises where one is wanted. On a
+    card one launch, equal to the plain version bit for bit; the object ids
+    are int32 there, and one outside [0, K) gives NaN fields (the plain
+    version raises, or wraps a negative id)."""
+    if wants_grad(xyz, features, q_pc, t_pc):
+        raise ValueError("point_attributes takes no gradient: use "
+                         "point_attributes_plain")
+    if xyz.device.type == "cpu":
+        return point_attributes_plain(xyz, features, q_pc, t_pc, K,
+                                      sh_max_band, row0, point_object_id)
+    n = xyz.shape[0]
+    cuda_build.require(xyz, "xyz", torch.float32, 2)
+    cuda_build.require(features, "features", torch.float32, 2)
+    cuda_build.require(K, "K", torch.float32, 2)
+    if xyz.shape != (n, 3) or features.shape != (n, 56) or K.shape != (3, 3):
+        raise ValueError(f"need xyz (N, 3), features (N, 56), K (3, 3); got "
+                         f"{tuple(xyz.shape)}, {tuple(features.shape)}, "
+                         f"{tuple(K.shape)}")
+    if features.data_ptr() % 16:
+        raise ValueError("features: the kernel reads 16-byte aligned rows")
+    ids = None
+    if point_object_id is not None and q_pc.dim() == 2:
+        ids = point_object_id
+        cuda_build.require(ids, "point_object_id", torch.int32, 1)
+        if (ids.shape != (n,) or q_pc.shape[1] != 4
+                or t_pc.shape != (q_pc.shape[0], 3)):
+            raise ValueError("per-object poses need q (K, 4), t (K, 3) and "
+                             "point_object_id (N,)")
+    else:
+        q_pc, t_pc = q_pc.reshape(4), t_pc.reshape(3)
+    # a pose cut from a (4, 4) matrix is a strided view: copy its few floats
+    q_pc, t_pc = q_pc.contiguous(), t_pc.contiguous()
+    cuda_build.require(q_pc, "q_pc", torch.float32, q_pc.dim())
+    cuda_build.require(t_pc, "t_pc", torch.float32, t_pc.dim())
+    args = (features, q_pc, t_pc, K) + (() if ids is None else (ids,))
+    if any(a.device != xyz.device for a in args):
+        raise ValueError("point_attributes: inputs lie on different devices")
+    out = [torch.empty(shape, dtype=torch.float32, device=xyz.device)
+           for shape in ((n, 2), (n, 3), (n, 4), (n,), (n, 3), (n,), (n, 2))]
+    if n == 0:
+        return tuple(out)
+    launch = cuda_build.bind("attributes", "point_attributes_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8)
+    err = launch(xyz.data_ptr(), features.data_ptr(), n, q_pc.data_ptr(),
+                 t_pc.data_ptr(), None if ids is None else ids.data_ptr(),
+                 q_pc.shape[0] if ids is not None else 1, K.data_ptr(),
+                 min((int(sh_max_band) + 1) ** 2, len(_COEFF_BAND)),
+                 float(row0), *(o.data_ptr() for o in out),
+                 cuda_build.stream_of(xyz))
+    point_attributes.launches += 1
+    cuda_build.check(err, "point_attributes")
+    return tuple(out)
+
+
+point_attributes.launches = 0
 
 
 def frustum_cull_mask(

@@ -75,16 +75,18 @@ def render_reference(xyz, features, invalid_mask, q_pointcloud_camera,
     from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
     from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
         frustum_cull_mask,
+        point_attributes_plain,
     )
-    from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
-        compute_raw_attrs,
-    )
+    from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import RawAttrs
 
     tile_w, tile_h = tiling.tile_wh(
         (cfg.tile_size, cfg.tile_size if cfg.tile_h is None else cfg.tile_h))
-    raw, radius = compute_raw_attrs(
-        xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera,
-        sh_max_band)
+    # the plain attributes, so the card tests that hold the kernels against
+    # this oracle do not share the attribute kernel
+    *fields, radius = point_attributes_plain(
+        xyz, features, q_pointcloud_camera, t_pointcloud_camera, camera.K,
+        sh_max_band, camera.row0)
+    raw = RawAttrs(*fields)
     visible = frustum_cull_mask(
         raw.uv, raw.depth, invalid_mask, camera.width, camera.height,
         cfg.near_plane, cfg.far_plane, (tile_w, tile_h),

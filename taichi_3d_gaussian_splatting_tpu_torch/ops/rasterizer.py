@@ -3,7 +3,8 @@ image, and its backward.
 
 Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
 
-  compute_raw_attrs (plain torch: projection, EWA, SH, sigmoid; autograd)
+  compute_raw_attrs (projection, EWA, SH, sigmoid: without gradient the
+     point-attributes kernel, under autograd plain torch)
   -> build_keys (no gradient: frustum cull, tile bbox, the slot-keys
      kernel, one stable key sort, the sorted-table kernel, the
      tile_ranges kernel for the tile ranges)
@@ -36,15 +37,16 @@ import torch
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend
 from taichi_3d_gaussian_splatting_tpu_torch.ops import tiling
 from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
-    compute_point_attributes,
     frustum_cull_mask,
+    point_attributes,
+    point_attributes_plain,
+    wants_grad,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.packing import round_bf16
 from taichi_3d_gaussian_splatting_tpu_torch.ops.segment_reduce import (
     segment_reduce_sorted,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.stages import stage
-from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import inverse_qt
 
 
 @dataclass(frozen=True)
@@ -200,24 +202,17 @@ def compute_raw_attrs(xyz, features, q_pointcloud_camera, t_pointcloud_camera,
     """Project pool slots to screen space. ``q/t_pointcloud_camera`` is the
     camera pose in the world frame, shapes (4,)/(3,), or per-object poses
     (K, 4)/(K, 3), each point taking the pose of its ``point_object_id``.
-    Returns (RawAttrs, per-axis cull radius (N, 2))."""
-    if point_object_id is not None and q_pointcloud_camera.dim() == 2:
-        idx = point_object_id.long()
-        q_pc = q_pointcloud_camera[idx]
-        t_pc = t_pointcloud_camera[idx]
-    else:
-        q_pc = q_pointcloud_camera.reshape(4)
-        t_pc = t_pointcloud_camera.reshape(3)
-    q_cw, t_cw = inverse_qt(q_pc, t_pc)
-    attrs = compute_point_attributes(xyz, features, q_cw, t_cw, camera.K, t_pc,
-                                     sh_max_band)
-    uv = attrs.uv
-    if camera.row0:
-        uv = uv - uv.new_tensor([0.0, float(camera.row0)])
-    raw = RawAttrs(uv=uv, cov2d=attrs.cov2d, conic=attrs.conic,
-                   opacity=attrs.opacity, color=attrs.color,
-                   depth=attrs.xyz_cam[:, 2])
-    return raw, attrs.radius_xy
+    Returns (RawAttrs, per-axis cull radius (N, 2)). Where a gradient is
+    wanted (grad mode on and xyz, features or the pose requiring grad) the
+    plain version builds autograd's graph; otherwise ``point_attributes``
+    runs, one kernel launch on a card."""
+    fn = (point_attributes_plain
+          if wants_grad(xyz, features, q_pointcloud_camera,
+                        t_pointcloud_camera) else point_attributes)
+    *fields, radius_xy = fn(xyz, features, q_pointcloud_camera,
+                            t_pointcloud_camera, camera.K, sh_max_band,
+                            camera.row0, point_object_id)
+    return RawAttrs(*fields), radius_xy
 
 
 def attr_columns(raw: RawAttrs, pack_colors: bool = False) -> torch.Tensor:
@@ -387,9 +382,8 @@ def rasterize(xyz: torch.Tensor, features: torch.Tensor,
     _check_size(camera, tile)
     pin_f32_matmul()
     grid_hw = (camera.width // tile[0], camera.height // tile[1])
-    needs_grad = torch.is_grad_enabled() and any(
-        a.requires_grad for a in (xyz, features, q_pointcloud_camera,
-                                  t_pointcloud_camera))
+    needs_grad = wants_grad(xyz, features, q_pointcloud_camera,
+                            t_pointcloud_camera)
     with torch.set_grad_enabled(needs_grad):
         with stage("gs.attributes"):
             raw, radius = compute_raw_attrs(

@@ -19,6 +19,7 @@ import torch
 from taichi_3d_gaussian_splatting_tpu_torch.convert import (
     scene_from_jax_arrays,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops import attributes as attrs
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as tr
 from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
@@ -254,7 +255,23 @@ def test_wrappers_check_shapes():
 
 
 COUNTERS = (histogram.tile_ranges, expand.slot_keys, expand.sorted_table, blend.blend_forward,
-            blend.blend_backward, sr.segment_reduce, sr.segment_reduce_sorted)
+            blend.blend_backward, sr.segment_reduce, sr.segment_reduce_sorted,
+            attrs.point_attributes)
+
+
+def test_point_attributes_refuses_a_gradient():
+    """The attribute kernel's wrapper takes no gradient: a caller that
+    wants one must take the plain version (compute_raw_attrs does)."""
+    xyz, feats, _, q, t = _scene_tensors()
+    K = torch.from_numpy(make_K())
+    with pytest.raises(ValueError, match="no gradient"):
+        attrs.point_attributes(xyz.clone().requires_grad_(True), feats, q, t,
+                               K)
+    with torch.no_grad():
+        got = attrs.point_attributes(xyz.clone().requires_grad_(True), feats,
+                                     q, t, K)
+    for g, w in zip(got, attrs.point_attributes_plain(xyz, feats, q, t, K)):
+        assert torch.equal(g.nan_to_num(7.0), w.nan_to_num(7.0))
 
 
 def test_wrappers_on_cpu_never_launch():

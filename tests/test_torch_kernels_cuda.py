@@ -18,7 +18,10 @@ where the plain version takes a parallel cumprod, so rgb/alpha agree to
 size, the count exactly. blend_backward sums each key's pixel terms in
 another order than the plain version's torch.sum: rows 0..8 and 10 agree
 to 5e-4 + 1e-3 |plain| (the JAX package's gradient gate), the count and
-the |grad_uv| image (1e-4) as the forward's.
+the |grad_uv| image (1e-4) as the forward's. The point-attributes kernel
+keeps the plain version's operation order and rounding, so its fields
+agree to rtol 2e-6 / atol 1e-6 (a few ulps) with the same non-finite
+pattern, and the cull mask and key total it gives exactly.
 """
 import importlib.util
 import tempfile
@@ -31,6 +34,7 @@ import torch
 from taichi_3d_gaussian_splatting_tpu_torch.convert import (
     scene_from_jax_arrays,
 )
+from taichi_3d_gaussian_splatting_tpu_torch.ops import attributes as attrs
 from taichi_3d_gaussian_splatting_tpu_torch.ops import blend, expand, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 from taichi_3d_gaussian_splatting_tpu_torch.ops import segment_reduce as sr
@@ -46,6 +50,7 @@ from tests.torch_port_scenes import (
     T_ID,
     host_scalar_adam,
     make_K,
+    make_odd_scene,
     make_scene,
 )
 
@@ -222,6 +227,162 @@ def test_render_graph_frame_is_the_capped_and_the_exact_frame(dev,
     assert int(r.over_cap) == 0
 
 
+ATTR_TOL = dict(rtol=2e-6, atol=1e-6, equal_nan=True)
+# a camera pose in the world and three per-object poses (xyzw, t)
+POSE = (np.asarray([0.05, -0.02, 0.01, 1.0], np.float32) / np.float32(
+    np.linalg.norm([0.05, -0.02, 0.01, 1.0])), np.asarray([0.1, 0.0, -0.3],
+                                                         np.float32))
+OBJECT_POSES = (
+    np.asarray([POSE[0], [0.0, 0.0, 0.0, 1.0], [0.0, 0.0998, 0.0, 0.995]],
+               np.float32),
+    np.asarray([POSE[1], [0.0, 0.0, 0.0], [0.2, -0.1, 0.05]], np.float32))
+
+
+def _attr_scene(kind, n=160):
+    """(xyz, features, invalid) numpy: the odd scene (zero rows, points
+    behind the camera, at its centre and on its plane), with NaN and inf
+    in some feature columns for "nonfinite", or a seeded 200k-point
+    Truck-like scene (60% in a box in front of the camera, the rest on a
+    shell behind and beside it)."""
+    if kind == "truck":
+        rng = np.random.default_rng(20_000_003)
+        n = 200_000
+        vis = rng.random(n) < 0.6
+        theta = rng.uniform(0.6 * np.pi, 1.4 * np.pi, n)
+        rad = rng.uniform(5.0, 30.0, n)
+        xyz = np.where(vis[:, None], np.stack(
+            [rng.uniform(-8, 8, n), rng.uniform(-4, 4, n),
+             rng.uniform(1, 30, n)], -1), np.stack(
+            [rad * np.sin(theta), rng.uniform(-4, 4, n),
+             rad * np.cos(theta)], -1)).astype(np.float32)
+        feats = np.empty((n, 56), np.float32)
+        q = rng.normal(size=(n, 4))
+        feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+        feats[:, 4:7] = rng.uniform(-4.5, -2.0, (n, 3))
+        feats[:, 7] = rng.uniform(-2.0, 3.0, n)
+        feats[:, 8:] = rng.normal(size=(n, 48)) * 0.3
+        return xyz, feats, np.zeros((n,), bool)
+    xyz, feats, invalid = make_odd_scene(n)
+    if kind == "nonfinite":
+        for row, col, val in ((20, 0, np.nan), (21, 5, np.inf), (22, 7, np.nan),
+                              (23, 9, np.nan), (24, 30, -np.inf),
+                              (25, 55, np.nan), (26, 6, -np.inf)):
+            feats[row, col] = val
+        xyz[27, 1] = np.nan
+    return xyz, feats, invalid
+
+
+def _attr_args(dev, kind, objects):
+    xyz, feats, invalid = _attr_scene(kind)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    if objects:
+        q, t = map(to, OBJECT_POSES)
+        ids = to(np.random.default_rng(5).integers(0, 3, len(xyz)).astype(
+            np.int32))
+    else:
+        (q, t), ids = map(to, POSE), None
+    return to(xyz), to(feats), to(invalid), q, t, ids
+
+
+def _assert_same_attrs(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **ATTR_TOL)
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.isinf(g), torch.isinf(w))
+
+
+@pytest.mark.parametrize("kind", ["odd", "nonfinite"])
+@pytest.mark.parametrize("band", [0, 1, 3])
+@pytest.mark.parametrize("objects", [False, True])
+@pytest.mark.parametrize("row0", [0, 40])
+def test_point_attributes_matches_plain(dev, kind, band, objects, row0):
+    """compute_raw_attrs without grad (the kernel, one launch) against
+    compute_point_attributes (``point_attributes_plain``) and against
+    compute_raw_attrs' autograd path, on the odd scene's guard rows."""
+    xyz, feats, _, q, t, ids = _attr_args(dev, kind, objects)
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64, row0)
+    before = attrs.point_attributes.launches
+    with torch.no_grad():
+        raw, radius = R.compute_raw_attrs(xyz, feats, q, t, cam, band, ids)
+        plain = attrs.point_attributes_plain(xyz, feats, q, t, cam.K, band,
+                                             row0, ids)
+    assert attrs.point_attributes.launches == before + 1
+    x = xyz.clone().requires_grad_(True)
+    raw_g, radius_g = R.compute_raw_attrs(x, feats, q, t, cam, band, ids)
+    assert raw_g.uv.requires_grad
+    assert attrs.point_attributes.launches == before + 1
+    got = tuple(raw) + (radius,)
+    _assert_same_attrs(got, plain)
+    _assert_same_attrs(got, tuple(a.detach() for a in raw_g) + (radius_g,))
+    assert bool(torch.isfinite(raw.uv).any())
+    if kind == "nonfinite":
+        assert bool(torch.isnan(raw.color).any())
+
+
+def test_point_attributes_matches_plain_on_a_truck_scene(dev):
+    xyz, feats, _, q, t, _ = _attr_args(dev, "truck", False)
+    K = torch.from_numpy(np.asarray(
+        [[580.0, 0.0, 480.0], [0.0, 580.0, 272.0], [0.0, 0.0, 1.0]],
+        np.float32)).to(dev)
+    with torch.no_grad():
+        got = attrs.point_attributes(xyz, feats, q, t, K)
+        want = attrs.point_attributes_plain(xyz, feats, q, t, K)
+    _assert_same_attrs(got, want)
+
+
+def test_point_attributes_keep_the_cull_and_the_key_total(dev):
+    """On the odd scene the kernel's fields give exactly the plain
+    version's frustum-cull mask and tile-key total."""
+    xyz, feats, invalid, q, t, _ = _attr_args(dev, "odd", False)
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
+    cfg = R.RasterizerConfig(tile_size=32)
+    with torch.no_grad():
+        *fields, radius = attrs.point_attributes(xyz, feats, q, t, cam.K)
+        *pfields, pradius = attrs.point_attributes_plain(xyz, feats, q, t,
+                                                         cam.K)
+    totals, masks = [], []
+    for raw, rad in ((R.RawAttrs(*fields), radius),
+                     (R.RawAttrs(*pfields), pradius)):
+        vis = R.frustum_cull_mask(raw.uv, raw.depth, invalid, 64, 64,
+                                  cfg.near_plane, cfg.far_plane, (32, 32))
+        masks.append(vis)
+        totals.append(tiling.point_key_ranges(
+            raw.uv, raw.depth, rad, vis, 64, 64, (32, 32),
+            cfg.depth_to_sort_key_scale).total)
+    assert torch.equal(masks[0], masks[1])
+    assert 0 < int(masks[0].sum()) < len(masks[0])
+    assert totals[0] == totals[1] > 0
+    assert R.key_total(xyz, feats, invalid, q, t, cam, cfg) == totals[1]
+
+
+def test_point_attributes_graph_reads_the_pose_from_the_card(dev):
+    """A FrameGraph of compute_raw_attrs, captured at one pose, replays at
+    two others bit for bit as the eager kernel: the kernel reads the pose
+    through a pointer into the graph's static inputs."""
+    from taichi_3d_gaussian_splatting_tpu_torch.apps.render import FrameGraph
+
+    xyz, feats, _, q, t, _ = _attr_args(dev, "odd", False)
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
+
+    def frame(qq, tt):
+        raw, radius = R.compute_raw_attrs(xyz, feats, qq, tt, cam)
+        return tuple(raw) + (radius,)
+
+    with torch.no_grad():
+        graph = FrameGraph(frame, (q, t), dev)
+        turned = (torch.tensor([0.0, 0.0998, 0.0, 0.995], device=dev),
+                  torch.tensor([0.2, -0.1, 0.05], device=dev))
+        frames = []
+        for qq, tt in ((q, t), turned, (q, t)):
+            got = graph(qq, tt)
+            want = frame(qq, tt)
+            for g, w in zip(got, want):
+                assert torch.equal(g.nan_to_num(7.0), w.nan_to_num(7.0))
+            frames.append(got[0])
+    assert not torch.equal(frames[0], frames[1])
+    assert torch.equal(frames[0], frames[2])
+
+
 @pytest.mark.parametrize("tile", [(32, 32), (32, 16), (32, 8), (16, 16),
                                   (48, 2), (12, 4)])
 @pytest.mark.parametrize("rgb_only", [False, True])
@@ -253,13 +414,13 @@ def test_blend_matches_plain(dev, tile, rgb_only, dense):
 
 def test_rasterize_launches_every_kernel(dev):
     cfg, cam, _, _, _, (xyz, feats, invalid) = _frame(dev)
-    counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
-                blend.blend_forward)
+    counters = (attrs.point_attributes, expand.slot_keys,
+                expand.sorted_table, histogram.tile_ranges, blend.blend_forward)
     before = [f.launches for f in counters]
     out = R.rasterize(xyz, feats, invalid, torch.from_numpy(Q_ID).to(dev),
                       torch.from_numpy(T_ID).to(dev), cam, cfg)
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 4
+            for f, b in zip(counters, before)] == [1] * 5
     assert out.rgb.shape == (64, 64, 3) and out.rgb.is_cuda
     assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
 
@@ -372,13 +533,15 @@ def test_train_step_launches_every_kernel(dev):
                            * 255).astype(np.uint8)).to(dev)
     counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
                 blend.blend_forward, blend.blend_backward,
-                sr.segment_reduce_sorted, sr.segment_reduce)
+                sr.segment_reduce_sorted, sr.segment_reduce,
+                attrs.point_attributes)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
+    # the step's attributes take autograd's plain path, never the kernel
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 6 + [0]
+            for f, b in zip(counters, before)] == [1] * 6 + [0, 0]
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
