@@ -8,7 +8,9 @@ configurations state), and, in the train cells, the planted faults'.
         --first-seed <n> --seconds 1 --control 3 --faults 3
 
 Prints one JSON line a reading; ``limits/<cell>.json`` is set from them
-by hand, as PERF.md records.
+by hand, as PERF.md records. A cell on several chips runs the program's
+seeds and its faults (``rank_left_out`` besides) in one process group
+(``ranks.run_jobs``), then the control on this process's card alone.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ if str(ROOT) not in sys.path:
 
 import torch  # noqa: E402
 
-from perfbench import cells, drive  # noqa: E402
+from perfbench import cells, drive, ranks  # noqa: E402
 from perfbench.reference import splat  # noqa: E402
 
 
@@ -50,18 +52,45 @@ def half_batch():
 
 @contextlib.contextmanager
 def state_unchanged():
-    """Every train step returns the state it was given."""
+    """Every train step (one card's or data-parallel) returns the state it
+    was given."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
     from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
 
     apply = trainer.apply_grads
 
     def same(state, optimizers, d_xyz, d_features, ctrl_state, pose=None):
         return state
-    trainer.apply_grads = same
+    trainer.apply_grads = dp.apply_grads = same
     try:
         yield
     finally:
-        trainer.apply_grads = apply
+        trainer.apply_grads = dp.apply_grads = apply
+
+
+@contextlib.contextmanager
+def rank_left_out():
+    """The last rank's sums left out of the data-parallel step's SUM: it
+    adds zeros to the others' and goes on with its own unreduced sums."""
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
+        multihost as mh,
+    )
+
+    whole = mh.all_reduce_packed
+
+    def left_out(tensors, op="sum", dtype=torch.float32, group=None,
+                 log=None):
+        if op != "sum" or mh.rank() != mh.world_size() - 1:
+            return whole(tensors, op, dtype, group, log)
+        whole([torch.zeros_like(t) for t in tensors], op, dtype, group, log)
+        return [t.to(dtype) for t in tensors]
+    mh.all_reduce_packed = left_out
+    try:
+        yield
+    finally:
+        mh.all_reduce_packed = whole
 
 
 @contextlib.contextmanager
@@ -95,12 +124,24 @@ def answer_altered():
 
 
 FAULTS = {"half_batch": half_batch, "state_unchanged": state_unchanged,
-          "answer_altered": answer_altered}
+          "answer_altered": answer_altered, "rank_left_out": rank_left_out}
+
+
+def outcome_row(o) -> dict:
+    """A reading of a run on several ranks (``ranks.Outcome``)."""
+    return {"numbers": o.numbers, "detail": getattr(o.driver, "detail", None),
+            "attempted": o.win.attempted, "failed": o.win.failed,
+            "setup_s": o.setup_s,
+            "step_or_frame_ms": o.win.wall_s * 1e3 / o.win.attempted,
+            "memory_peak": o.memory_peak}
 
 
 def program_numbers(cell, seed: int, seconds: float, device) -> dict:
     """One run of the program's timed path, its window cut short."""
-    d = drive.DRIVERS[cell.kind](cell, seed, device)
+    if cell.chips > 1:
+        return outcome_row(ranks.run_jobs(cell, [ranks.Job(seed)], seconds,
+                                          False, str(device))[0])
+    d = drive.driver_class(cell.kind)(cell, seed, device)
     t0 = time.perf_counter()
     d.setup()
     t1 = time.perf_counter()
@@ -117,9 +158,9 @@ def program_numbers(cell, seed: int, seconds: float, device) -> dict:
 
 def control_numbers(cell, seed: int, device) -> dict:
     """The reference in the program's place, computed in TF32."""
-    d = drive.DRIVERS[cell.kind](cell, seed, device)
+    d = drive.driver_class(cell.kind)(cell, seed, device)
     t0 = time.perf_counter()
-    if cell.kind == "train":
+    if d.reads_as == "train":
         d.u8 = d.targets()
         numbers = d.reference_numbers(d.reference_steps("tf32"), "f32")
         numbers = dict(numbers, detail=d.detail)
@@ -148,11 +189,15 @@ def main(argv=None) -> int:
         from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build
 
         cuda_build.build_all()
-    seeds = [args.first_seed + 7919 * i for i in range(args.seeds)]
-    jobs = [("program", s, None) for s in seeds]
+    seeds = [args.first_seed + 7919 * i
+             for i in range(max(args.seeds, args.control, args.faults))]
+    faults = (["half_batch", "answer_altered"]
+              if drive.driver_class(cell.kind).reads_as == "train" else [])
+    if cell.chips > 1:
+        faults.append("rank_left_out")
+        return several_ranks(cell, seeds, faults, args, dev)
+    jobs = [("program", s, None) for s in seeds[:args.seeds]]
     jobs += [("control", s, None) for s in seeds[:args.control]]
-    faults = (["half_batch", "answer_altered"] if cell.kind == "train"
-              else [])
     jobs += [(f, s, f) for f in faults for s in seeds[:args.faults]]
     for what, seed, fault in jobs:
         row = {"workload": cell.name, "what": what, "seed": seed}
@@ -167,6 +212,39 @@ def main(argv=None) -> int:
                 row.update(program_numbers(cell, seed, args.seconds, dev))
         except Exception:  # report and go on with the next reading
             row["error"] = traceback.format_exc()[-3000:]
+        print(json.dumps(row), flush=True)
+        drive._free(dev)
+    return 0
+
+
+def several_ranks(cell, seeds: list, faults: list, args, dev) -> int:
+    """The readings of a cell on several ranks: the program's seeds and the
+    faults' in one process group (``ranks.run_jobs``), then the control
+    here."""
+    jobs = [("program", s, None) for s in seeds[:args.seeds]]
+    jobs += [(f, s, f) for f in faults for s in seeds[:args.faults]]
+    if jobs:
+        t0 = time.perf_counter()
+        try:
+            # the ranks' group lines go to standard error: one reading a line
+            with contextlib.redirect_stdout(sys.stderr):
+                outcomes = ranks.run_jobs(
+                    cell, [ranks.Job(s, FAULTS[f] if f else None)
+                           for _, s, f in jobs], args.seconds, False,
+                    args.device)
+        except ranks.RankFailed:
+            print(json.dumps({"workload": cell.name, "error":
+                              traceback.format_exc()[-3000:]}), flush=True)
+            return 1
+        for (what, seed, _), o in zip(jobs, outcomes):
+            print(json.dumps(dict({"workload": cell.name, "what": what,
+                                   "seed": seed}, **outcome_row(o))),
+                  flush=True)
+        print(json.dumps({"workload": cell.name, "jobs": len(jobs),
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    for seed in seeds[:args.control]:
+        row = {"workload": cell.name, "what": "control", "seed": seed}
+        row.update(control_numbers(cell, seed, dev))
         print(json.dumps(row), flush=True)
         drive._free(dev)
     return 0

@@ -1,4 +1,4 @@
-"""The two kinds of traffic, driven through the program's own entry points.
+"""The traffic kinds, driven through the program's own entry points.
 
 ``TrainDriver`` (traffic ``"kind": "train"``): ``make_train_step`` with
 ``scan_steps`` k = ``steps_per_call``, the windowed step at a fitted key
@@ -19,22 +19,30 @@ first steps or frames; ``phases`` its seconds by part, ``reference_s`` the
 part the plain reference took to make inputs, which ``setup_s`` leaves
 out), ``window`` (the measured loop), ``stage_frames`` (eager frames for
 the stage metrics), ``check`` (frees the program's state, then the plain
-reference: the numbers that decide ``correct``) and ``work`` (the work of
-a step or frame, counted from the cell's inputs).
+reference: the numbers that decide ``correct``), ``work_parts`` (the work
+of a step or frame, counted from the cell's inputs) and ``reads_as`` (the
+kind the per-layer readers take it for: ``"train"`` or ``"render"``). A
+driver of a cell on several ranks (``ranks.py``) also takes ``calls`` in
+``window`` and gives ``state_leaves``.
+
+A traffic kind that is not in ``DRIVERS`` is the class ``Driver`` of
+``drivers/<kind>.py`` (``driver_class``).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import time
 import types
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from perfbench import inputs
+from perfbench import inputs, work
 from perfbench.reference import splat
 from perfbench.reference import step as ref_step
 
@@ -113,6 +121,8 @@ def moved_leaves(grads: dict) -> list:
 
 
 class TrainDriver:
+    reads_as = "train"
+
     def __init__(self, cell, seed: int, device):
         self.cell, self.seed, self.dev = cell, seed, torch.device(device)
         self.k = int(cell.traffic["steps_per_call"])
@@ -232,7 +242,9 @@ class TrainDriver:
             self.state = state
             _sync(dev)
 
-    def window(self, seconds: float) -> Window:
+    def window(self, seconds: float, calls=None) -> Window:
+        """Window calls until ``seconds`` have passed, or ``calls`` of
+        them."""
         dev, band = self.dev, self.band
         losses, n = [], 0
         state = self.state
@@ -242,7 +254,8 @@ class TrainDriver:
                 state, m, _ = self.run(state, *self.inputs, band)
             n += self.k
             losses.append(m["loss"].reshape(-1))
-            if time.perf_counter() - t0 >= seconds:
+            if (n >= calls * self.k if calls is not None
+                    else time.perf_counter() - t0 >= seconds):
                 break
         _sync(dev)
         wall = time.perf_counter() - t0
@@ -264,7 +277,7 @@ class TrainDriver:
         step, as the optimizer took it) and ``change_gap`` (worst leaf's
         gap of the norm of the parameters' change over the steps)."""
         first = self.first
-        self.state = self.run = None
+        self.state = self.run = self.inputs = self.first = None
         _free(self.dev)
         return self.reference_numbers(first, "f32")
 
@@ -329,8 +342,18 @@ class TrainDriver:
                              cfg["tile_size"], counts=total)
         return {k: v / len(self.poses) for k, v in total.items()}
 
+    def work_parts(self) -> dict:
+        """``work.step_parts`` of one step at the cell's mean view."""
+        v = self.cell.views
+        return work.step_parts(
+            self.cell.config["points"], v["height"], v["width"],
+            self.cell.config["train"]["rasterisation_config"]["tile_size"],
+            self.work_counts())
+
 
 class RenderDriver:
+    reads_as = "render"
+
     def __init__(self, cell, seed: int, device):
         self.cell, self.seed, self.dev = cell, seed, torch.device(device)
         v = cell.views
@@ -464,5 +487,30 @@ class RenderDriver:
                 self.reference_frame(xyz, feats, i, total)
         return {k: v / self.n_poses for k, v in total.items()}
 
+    def work_parts(self) -> dict:
+        """``work.frame_parts`` of one frame at the cell's mean pose."""
+        v = self.cell.views
+        return work.frame_parts(self.cell.config["points"], v["height"],
+                                v["width"], self.rc["tile_size"],
+                                self.work_counts())
+
 
 DRIVERS = {"train": TrainDriver, "render": RenderDriver}
+DRIVER_FILES = Path(__file__).resolve().parent / "drivers"
+
+
+def driver_class(kind: str):
+    """The cell driver of the traffic ``kind``: ``DRIVERS[kind]``, else the
+    class ``Driver`` of ``drivers/<kind>.py``."""
+    if kind in DRIVERS:
+        return DRIVERS[kind]
+    path = DRIVER_FILES / f"{kind}.py"
+    if not path.is_file():
+        raise ValueError(f"no driver for the traffic kind {kind!r}: not in "
+                         f"drive.DRIVERS and no {path}")
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_driver_" + kind.replace(".", "_").replace("-", "_"),
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Driver

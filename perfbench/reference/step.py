@@ -2,7 +2,8 @@
 L1 + SSIM loss, the gradients of positions and features through the blend
 and the attributes, the per-column gradient factors, and Adam on the
 features and on the positions (optax's update: bias-corrected moments,
-a staircase-decayed position learning rate).
+a staircase-decayed position learning rate); and the data-parallel step's
+mean of a batch's gradients (``mean_step``).
 
 Only the rgb image backpropagates, through the clamp to [0, 1] (no
 gradient where the clamp holds or at its bounds); the 0.99 alpha clamp is
@@ -109,11 +110,11 @@ class StepOut(NamedTuple):
     counts: dict            # the frame's work (``splat.blend``)
 
 
-def train_step(state: State, target: torch.Tensor, view: splat.View,
-               cfg: dict, sh_band: int = 3) -> StepOut:
-    """One step on the (H, W, 3) f32 ``target``. ``cfg``: the
-    configuration's ``train`` group (near, far, depth scale, tile, loss
-    weight, gradient factors, learning rates)."""
+def gradients(state: State, target: torch.Tensor, view: splat.View,
+              cfg: dict, sh_band: int = 3):
+    """(loss, d_xyz, d_feats, counts) of one view on the (H, W, 3) f32
+    ``target``: the gradients as the optimizers take them (the features'
+    with the per-column factors) and the frame's work (``splat.blend``)."""
     tile = cfg["tile_size"]
     xyz = state.xyz.detach().requires_grad_(True)
     feats = state.feats.detach().requires_grad_(True)
@@ -137,6 +138,12 @@ def train_step(state: State, target: torch.Tensor, view: splat.View,
     d_xyz = torch.zeros_like(xyz) if d_xyz is None else d_xyz
     d_feats = torch.zeros_like(feats) if d_feats is None else d_feats
     d_feats = d_feats * grad_factors(cfg, feats.device)[None, :]
+    return float(loss.detach()), d_xyz, d_feats, counts
+
+
+def update(state: State, d_xyz: torch.Tensor, d_feats: torch.Tensor,
+           cfg: dict) -> State:
+    """Both Adams from the step's gradients."""
     with torch.no_grad():
         new_feats, fo = adam(state.feats, d_feats, state.feat_opt,
                              cfg["feature_learning_rate"])
@@ -146,5 +153,32 @@ def train_step(state: State, target: torch.Tensor, view: splat.View,
             ** (state.pos_opt.count
                 // cfg["position_learning_rate_decay_interval"])))
         new_xyz, po = adam(state.xyz, d_xyz, state.pos_opt, pos_lr)
-    return StepOut(State(new_xyz, new_feats, fo, po), float(loss.detach()),
-                   d_xyz, d_feats, counts)
+    return State(new_xyz, new_feats, fo, po)
+
+
+def train_step(state: State, target: torch.Tensor, view: splat.View,
+               cfg: dict, sh_band: int = 3) -> StepOut:
+    """One step on the (H, W, 3) f32 ``target``. ``cfg``: the
+    configuration's ``train`` group (near, far, depth scale, tile, loss
+    weight, gradient factors, learning rates)."""
+    loss, d_xyz, d_feats, counts = gradients(state, target, view, cfg,
+                                             sh_band)
+    return StepOut(update(state, d_xyz, d_feats, cfg), loss, d_xyz, d_feats,
+                   counts)
+
+
+def mean_step(state: State, targets: list, views: list, cfg: dict,
+              sh_band: int = 3) -> StepOut:
+    """One data-parallel step over a batch of views: each view's gradients
+    as ``gradients`` takes them, summed in the batch's order and divided
+    by its size, then Adam; the loss is the batch's mean. ``counts`` are
+    the last view's."""
+    losses, d_xyz, d_feats = [], None, None
+    for target, view in zip(targets, views):
+        loss, gx, gf, counts = gradients(state, target, view, cfg, sh_band)
+        losses.append(loss)
+        d_xyz = gx if d_xyz is None else d_xyz + gx
+        d_feats = gf if d_feats is None else d_feats + gf
+    d_xyz, d_feats = d_xyz / len(views), d_feats / len(views)
+    return StepOut(update(state, d_xyz, d_feats, cfg),
+                   float(np.mean(losses)), d_xyz, d_feats, counts)

@@ -19,9 +19,15 @@ end-to-end metrics, with ``--trace 1`` its per-layer metrics, read by
 ``device`` and, traced, ``breakdown``; ``checks`` comes last: each number
 compared, with its limit (also the last lines of standard error).
 
+A cell of several chips runs on as many ranks, one process a card in the
+port's process group (``ranks.py``); ``device.count`` is the cell's chips,
+``memory_peak_bytes`` the fullest card's, the traced metrics rank 0's.
+
 Without a CUDA card, or with fewer cards than the cell asks for, the run
 prints no result and exits with 2. It exits with 3 if ``jax``, ``jaxlib``,
-``flax`` or the JAX package is loaded once the window has closed.
+``flax`` or the JAX package is loaded once the window has closed, in this
+process or on any rank, and with 4 if a rank fails or the ranks are not
+done by their deadline.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import time
 T0 = time.time()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
@@ -44,27 +51,21 @@ if str(ROOT) not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench import cells, drive, trace, work  # noqa: E402
+from perfbench import cells, drive, ranks, trace  # noqa: E402
+from perfbench.ranks import forbidden_modules  # noqa: E402
 
 IMPORTED = time.time()
-
-FORBIDDEN = ("jax", "jaxlib", "flax", "taichi_3d_gaussian_splatting_tpu")
 
 
 @dataclass
 class Reading:
     """What a per-layer metric reader reads (``metrics/<metric>.py``)."""
 
-    kind: str              # the traffic kind: "train" or "render"
+    kind: str              # cell driver's ``reads_as``: "train" or "render"
     units: int             # steps or frames in the traced window
     trace: object          # trace.Window, or None without a card
-    parts: dict            # work.step_parts / frame_parts of one unit
+    parts: dict            # cell driver's ``work_parts``: of one unit
     stages: dict           # device ms a frame by gs.* stage (render)
-
-
-def forbidden_modules() -> list:
-    """Loaded modules whose top-level name is one of ``FORBIDDEN``."""
-    return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
 def power_limit() -> str:
@@ -78,18 +79,39 @@ def power_limit() -> str:
 
 
 def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool,
-             device: str = "cuda", t0: float = T0) -> dict:
-    """One run of ``cell``: the result object (``checks`` last)."""
+             device: str = "cuda", t0: float = T0, fault=None) -> dict:
+    """One run of ``cell``: the result object (``checks`` last). A cell of
+    several chips runs on as many ranks (``ranks.py``). ``fault``: a
+    context manager factory planted around the program on every rank
+    (``calibrate.FAULTS``)."""
     dev = torch.device(device)
-    cuda = dev.type == "cuda"
     phases = {"imports": IMPORTED - t0}
     t = time.time()
-    if cuda:
+    if dev.type == "cuda":
         from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build
 
         cuda_build.build_all()
     phases["kernels built or loaded"] = time.time() - t
-    driver = drive.DRIVERS[cell.kind](cell, seed, dev)
+    if cell.chips > 1:
+        outcome = ranks.run_jobs(cell, [ranks.Job(seed, fault)], seconds,
+                                 traced, device, t0)[0]
+        phases.update(outcome.phases)
+        print("setup phases, s (rank 0): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()), file=sys.stderr)
+        found = outcome.forbidden + forbidden_modules()
+        if found:
+            raise ForbiddenImport(found)
+    else:
+        with fault() if fault else contextlib.nullcontext():
+            outcome = one_rank(cell, seed, seconds, traced, dev, t0, phases)
+    return result(cell, outcome, traced, dev)
+
+
+def one_rank(cell: cells.Cell, seed: int, seconds: float, traced: bool,
+             dev: torch.device, t0: float, phases: dict) -> ranks.Outcome:
+    """The cell's driver in this process alone."""
+    cuda = dev.type == "cuda"
+    driver = drive.driver_class(cell.kind)(cell, seed, dev)
     driver.setup()
     # the plain reference's seconds making the inputs are not the program's
     setup_s = time.time() - t0 - driver.reference_s
@@ -108,27 +130,28 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool,
     found = forbidden_modules()
     if found:
         raise ForbiddenImport(found)
-    numbers = driver.check()
+    return ranks.Outcome(driver, win, window, setup_s, dict(driver.phases),
+                         memory_peak, stages, driver.check())
+
+
+def result(cell: cells.Cell, o: ranks.Outcome, traced: bool,
+           dev: torch.device) -> dict:
+    """The result object of a run's ``Outcome``: the checks, the metrics,
+    the device."""
+    cuda = dev.type == "cuda"
+    driver, win, window = o.driver, o.win, o.window
     metrics = {}
     if not cuda:
         pass  # a CPU run reports no metric: its times are not the card's
     elif traced:
-        counts = driver.work_counts()
-        v = cell.views
-        tile = (cell.config["train"]["rasterisation_config"]["tile_size"]
-                if cell.kind == "train" else cell.config["render"]
-                ["tile_size"])
-        parts_of = work.step_parts if cell.kind == "train" else \
-            work.frame_parts
-        reading = Reading(cell.kind, win.attempted, window,
-                          parts_of(cell.config["points"], v["height"],
-                                   v["width"], tile, counts), stages or {})
+        reading = Reading(driver.reads_as, win.attempted, window,
+                          driver.work_parts(), o.stages or {})
         for m in cell.per_layer:
             value = cells.reader(m["name"])(reading)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        measured = {"setup_s": setup_s,
+        measured = {"setup_s": o.setup_s,
                     "step_ms": win.wall_s * 1e3 / win.attempted,
                     "frame_ms": win.wall_s * 1e3 / win.attempted}
         if win.latencies_ms:
@@ -139,14 +162,14 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool,
                 metrics[m["name"]] = {"value": measured[m["name"]],
                                       "unit": m["unit"]}
     checks = {k: {"value": v, "limit": cell.limits.get(k)}
-              for k, v in numbers.items()}
+              for k, v in o.numbers.items()}
     correct = all(c["limit"] is not None and math.isfinite(c["value"])
                   and c["value"] <= c["limit"] for c in checks.values())
     result = {"correct": correct, "attempted": win.attempted,
               "failed": win.failed, "metrics": metrics}
     result["device"] = ({
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-        "count": 1, "memory_peak_bytes": int(memory_peak),
+        "count": cell.chips, "memory_peak_bytes": int(o.memory_peak),
         "power": power_limit()} if cuda else {
         "platform": "cpu", "kind": "cpu", "count": 0,
         "memory_peak_bytes": 0})
@@ -185,6 +208,9 @@ def main(argv=None) -> int:
         print(f"perfbench: modules of JAX or of the JAX package loaded: "
               f"{e.args[0]}", file=sys.stderr)
         return 3
+    except ranks.RankFailed as e:
+        print(f"perfbench: a rank failed: {e}", file=sys.stderr)
+        return ranks.FAILED_EXIT
     if forbidden_modules():
         print(f"perfbench: modules of JAX or of the JAX package loaded: "
               f"{forbidden_modules()}", file=sys.stderr)

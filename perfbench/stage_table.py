@@ -80,9 +80,12 @@ def main(argv=None) -> int:
     from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build, stages
 
     cell = cells.load(args.workload)
+    if cell.chips > 1:
+        print("stage_table: runs cells of one chip", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     cuda_build.build_all()
-    driver = drive.DRIVERS[cell.kind](cell, args.seed, dev)
+    driver = drive.driver_class(cell.kind)(cell, args.seed, dev)
     driver.setup()
     stages.reset()
     with trace.profiled() as held:

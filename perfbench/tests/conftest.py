@@ -18,8 +18,9 @@ HERE = ROOT / "perfbench"
 
 def tiny_cell(name: str, points: int = 400, size: int = 64) -> cells.Cell:
     """The cell ``name`` at a tiny size (``points`` points, size x size
-    views, focal 60 px), with its own limits: a cell of BENCHMARK.json, or
-    ``<config>.<traffic>`` of the files under ``perfbench/``."""
+    views, focal 60 px; a cell of several chips on 2 ranks), with its own
+    limits: a cell of BENCHMARK.json, or ``<config>.<traffic>`` of the
+    files under ``perfbench/``."""
     try:
         cell = cells.load(name)
     except SystemExit:
@@ -33,6 +34,8 @@ def tiny_cell(name: str, points: int = 400, size: int = 64) -> cells.Cell:
     cell.config["points"] = points
     cell.config["views"] = {"width": size, "height": size, "focal_px": 60.0}
     cell.traffic = {k: v for k, v in cell.traffic.items() if k != "views"}
+    if cell.chips > 1:
+        cell.chips = cell.traffic["ranks"] = 2
     return cell
 
 

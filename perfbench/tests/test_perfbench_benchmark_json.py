@@ -36,11 +36,15 @@ def test_shape_and_names():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and line(w["why"])
-        assert w["config"] in configs and w["chips"] == 1
+        assert w["config"] in configs and w["chips"] in (1, 4)
         assert (HERE / "traffic" / f"{w['traffic']}.json").exists()
         assert (HERE / "limits" / f"{w['name']}.json").exists()
         pairs.add((w["config"], w["traffic"]))
     assert len(pairs) == len(b["workloads"])
+    # four chips only where the cell measures what exists across chips: at
+    # most a quarter of the cells, rounded down, and one always
+    four = [w for w in b["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(b["workloads"]) // 4)
     cells = {w["name"] for w in b["workloads"]}
     e2e = {m["name"]: m for m in b["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25

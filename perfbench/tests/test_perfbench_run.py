@@ -57,7 +57,7 @@ def test_every_cell_finds_its_files():
     for name in CELLS:
         cell = cells.load(name)
         assert cell.limits, f"{name} has no limits file"
-        assert cell.kind in ("train", "render")
+        assert drive.driver_class(cell.kind).reads_as in ("train", "render")
         for m in cell.per_layer:
             assert callable(cells.reader(m["name"]))
 

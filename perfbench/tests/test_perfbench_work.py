@@ -96,3 +96,36 @@ def test_step_and_frame_parts_by_hand():
     assert work.total_ops(step) == sum(o for _, o in step.values())
     assert np.isclose(work.least_seconds(3.35e12, 0.0), 1.0)
     assert np.isclose(work.least_seconds(0.0, 67e12), 1.0)
+
+
+def test_collective_bytes_are_the_data_parallel_steps():
+    """``work.dp_collective_bytes`` against the collectives a data-parallel
+    step of the port logs (a group of one, on the CPU)."""
+    import json
+
+    from conftest import HERE
+    from taichi_3d_gaussian_splatting_tpu_torch.models.scene import (
+        GaussianScene,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.parallel.data_parallel import (  # noqa: E501
+        make_dp_train_step,
+    )
+    from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
+    from taichi_3d_gaussian_splatting_tpu_torch.training.config import (
+        from_dict,
+    )
+
+    n = 300
+    config = from_dict(json.loads((HERE / "configs" / "truck-428k.json")
+                                  .read_text())["train"])
+    xyz, feats = inputs.truck_scene(n, 5, "cpu")
+    state = trainer.init_train_state(GaussianScene(
+        xyz=xyz, features=feats, invalid=torch.zeros(n, dtype=torch.bool),
+        object_id=torch.zeros(n, dtype=torch.int32)), config)
+    step = make_dp_train_step(config, 64, 64, device="cpu", key_cap=4096)
+    K = torch.as_tensor(inputs.intrinsics(64, 64, 60.0))
+    step(state, torch.rand(1, 64, 64, 3), torch.tensor([[0.0, 0, 0, 1]]),
+         torch.zeros(1, 3), K[None], 3)
+    got = sum(c.numel * c.dtype.itemsize for c in step.collectives)
+    assert [c.op for c in step.collectives] == ["sum", "max"]
+    assert got == work.dp_collective_bytes(n)

@@ -17,9 +17,11 @@ import math
 import torch
 
 # NVIDIA H100 SXM at 700 W (data sheet): HBM bytes/s, float32 operations/s
-# outside the tensor cores
+# outside the tensor cores, and NVLink 4 bytes/s a card in each direction
+# (900 GB/s both ways)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+NVLINK_BYTES_PER_S = 450e9
 # rows of the blend backward's per-key table that the segment sum reads
 SEGMENT_ROWS = 12
 
@@ -166,6 +168,25 @@ def step_parts(n: int, height: int, width: int, tile: int,
         "adam": adam(n * (56 + 3)),
     })
     return parts
+
+
+# f32 columns a point of the data-parallel step's SUM: the gradients of
+# xyz (3) and of the features (56), the controller's accumulators (8:
+# ``controller.init_state``'s six arrays) and the visibility statistics
+# (6: visibility, affected pixels, gradient magnitude, overlap tiles and
+# the 2-D position gradient); then 4 scalars (loss, L1, SSIM, PSNR)
+DP_SUM_COLUMNS = 3 + 56 + 8 + 6
+DP_SUM_SCALARS = 4
+
+
+def dp_collective_bytes(n: int) -> int:
+    """Bytes a data-parallel step reduces over the ranks
+    (``parallel/data_parallel.py``): the packed f32 SUM and the f64 MAX of
+    the nearest depth of every point and the key total. Over the NVLink
+    rate of a card this is a least time under any all-reduce algorithm: a
+    ring sends 2(n-1)/n of the buffer from each card, an in-switch
+    reduction the whole buffer."""
+    return 4 * (DP_SUM_COLUMNS * n + DP_SUM_SCALARS) + 8 * (n + 1)
 
 
 def total_ops(parts: dict) -> float:
