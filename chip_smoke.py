@@ -12,7 +12,8 @@ yardstick of their redesign), then:
    same inputs: a small frame (64x64, 200 points) and the full-width frame
    (428,687 points, 960x544, 32x32 tiles). The key expansion's two passes
    (slot_keys: fused keys and owners; sorted_table: the table after the
-   sort) and tile_ranges (the tile ranges of the sorted keys) must match
+   sort), tile_ranges (the tile ranges of the sorted keys) and
+   tile_counts (the tile counters of those ranges) must match
    bit for bit, tile_ranges also against torch.searchsorted, and the fused
    keys,
    the sort's permutation and the sorted table must equal the first
@@ -137,7 +138,9 @@ yardstick of their redesign), then:
    each window one CUDA graph replay: (a) from phase 4's start state over
    8 views (targets rendered at ``poses(8)`` as phase 10's), with the key
    capacity fitted to their totals, the window's state and 8 losses equal
-   bit for bit to 8 eager steps on the exact path, replayed twice; (b)
+   bit for bit to 8 eager steps on the exact path, replayed twice, and
+   tile_counts launched once a step in the capture (a render graph
+   launches it never, phase 2); (b)
    with a capacity below the full-width total (2^18 against 471,633
    keys), K1a in its capped mode bit for bit against its capped plain
    version (and at the fitted capacity), and the capped step against the
@@ -146,7 +149,8 @@ yardstick of their redesign), then:
    (c) ms a step over warm replays (CUDA events), the device's busy share,
    the capture time, the graph pool's memory, and each kernel's launches a
    window counted from the profiler's trace of replays (8 each; the
-   wrappers' counters do not tick under a replay); (d) phase 5's loop with
+   wrappers' counters do not tick under a replay), and the tile counters
+   those replays recorded (``stages.read().counts``); (d) phase 5's loop with
    steps_per_dispatch 8: its windows, one capture a (size, SH band,
    capacity) and one graph held at a time, the key-capacity refits, ms an
    iteration over the whole train() window, and a resume; (e) a 49-
@@ -961,6 +965,19 @@ def check_kernels(frame: Frame, label: str, full_width: bool, first) -> dict:
         raise AssertionError(f"{label}: tile_ranges differs from "
                              + ", ".join(bad))
     errs["tile_ranges"] = max(max_abs(bounds, b) for b in pairs.values())
+    # the tile counters' kernel on the same ranges, against its plain version
+    got = torch.full((3,), -1, dtype=torch.int64, device=bounds.device)
+    want = torch.empty(3, dtype=torch.int64, device=bounds.device)
+    histogram.tile_counts(bounds, got)
+    histogram.tile_counts_plain(bounds, want)
+    torch.cuda.synchronize()
+    print(f"  {label} tile_counts: {dict(zip(histogram.TILE_COUNTS, got.tolist()))}"
+          f" over {frame.num_tiles} tiles, bit-identical to its plain "
+          f"version: {torch.equal(got, want)}", flush=True)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: tile_counts {got.tolist()} differs "
+                             f"from its plain version {want.tolist()}")
+    errs["tile_counts"] = max_abs(got, want)
 
     k = frame.keys
     worst = 0.0
@@ -2815,7 +2832,9 @@ def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
     (scan_steps) on phase 4's scene and start state over WINDOW views,
     each window one CUDA graph replay. ``ref``: phase 4's figures of this
     run (step ms, device ms), for the record."""
-    from taichi_3d_gaussian_splatting_tpu_torch.ops import expand
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import (
+        expand, histogram, stages,
+    )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
     from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
 
@@ -2838,8 +2857,15 @@ def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
+    histogram.tile_counts.launches = 0
     (got, wm, _), first_ms = synced_ms(window, start, imgs, qs, ts, Ks,
                                        band)
+    # the tile counters: one launch a step's build_keys in the capture, none
+    # in the warm-up (it counts the counters' slots)
+    counter_launches = histogram.tile_counts.launches
+    if counter_launches != WINDOW:
+        raise AssertionError(f"tile_counts launched {counter_launches} times "
+                             f"in the capture of {WINDOW} steps")
     (graph,) = window.graphs.values()
     pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
     first_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2912,7 +2938,19 @@ def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
         nonlocal state
         state = window(state, imgs, qs, ts, Ks, band)[0]
     window_ms = cuda_ms(run, reps=10, warmup=1) / WINDOW
+    stages.reset()
     busy, launches = window_profile(run, reps=3)
+    counts = stages.read().counts
+    records = stages._count_records["tiles_nonempty"]
+    num_tiles = (HEIGHT // TILE) * (WIDTH // TILE)
+    print(f"  (c) tile counters of the traced replays, a mean over {records} "
+          f"steps: {counts}", flush=True)
+    if (set(counts) != set(histogram.TILE_COUNTS) or records == 0
+            or records % WINDOW
+            or not 0 < counts["tile_keys_max"] <= counts["tile_keys_kept"]
+            <= cap or not 0 < counts["tiles_nonempty"] <= num_tiles):
+        raise AssertionError(f"the window's tile counters {counts} over "
+                             f"{records} steps")
     per_step_device = busy["device_busy_ms"] / 3 / WINDOW
     print(f"  (c) {window_ms:.3f} ms a step over warm replays (phase 4: "
           f"{ref.get('step_ms')} ms a step, {ref.get('device_ms')} ms of "
@@ -2926,6 +2964,8 @@ def run_windowed(xyz, feats, camera, cfg_kw, ref: dict) -> dict:
     if not all(math.isfinite(float(v)) for v in wm["loss"]):
         raise AssertionError("a non-finite window loss")
     return {"window_steps": WINDOW, "window_key_cap": cap,
+            "window_tile_counts_launches": counter_launches,
+            "window_tile_counters": counts,
             "window_key_totals": totals,
             "window_bit_for_bit": same and same2,
             "window_losses": [float(v) for v in wm["loss"]],
@@ -3716,12 +3756,16 @@ def main(argv=None) -> int:
     phase("phase 2: render through GaussianPointRenderer")
     zero_launches(kernels)
     expand.slot_keys.capped_launches = 0
+    histogram.tile_counts.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with first_design_calls() as off_path:
         frames = dict(renderer.frames())
     first_pass_s = time.perf_counter() - t0
     launches = read_launches(render_kernels)
+    if histogram.tile_counts.launches:  # render graphs record no counters
+        raise AssertionError(f"the render path launched tile_counts "
+                             f"{histogram.tile_counts.launches} times")
     graph = graph_frames(renderer, launches, expand.slot_keys.capped_launches)
     print(f"  {len(frames)} frames in {first_pass_s:.3f} s (first pass, the "
           f"capture included); launches {launches} (the graph's warm-up and "

@@ -49,3 +49,55 @@ extern "C" int tile_ranges_launch(const int* fused, int total, int dbits,
       fused, total, dbits, num_tiles, bounds);
   return (int)cudaGetLastError();
 }
+
+// tile_counts_kernel (ops/stages.py's tile counters, recorded inside the
+// train window's graph): the summary of one frame's tile ranges, written as
+// three int64 counters: the keys of the heaviest tile, the kept keys
+// (bounds[num_tiles] - bounds[0]: every key below the sentinel tile) and
+// the tiles that hold a key. One block strides over the tiles, reduces its
+// warps' maxima and counts with shuffles and one shared-memory round, and
+// thread 0 writes the three slots. A frame has under 10^4 tiles: one launch
+// of a few microseconds, inside the graph.
+__global__ void tile_counts_kernel(const int* __restrict__ bounds,
+                                   int num_tiles,
+                                   long long* __restrict__ out) {
+  __shared__ int warp_max[32];
+  __shared__ int warp_held[32];
+  int heaviest = 0, held = 0;
+  for (int t = threadIdx.x; t < num_tiles; t += blockDim.x) {
+    const int n = __ldg(bounds + t + 1) - __ldg(bounds + t);
+    heaviest = max(heaviest, n);
+    held += n > 0;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    heaviest = max(heaviest, __shfl_down_sync(0xffffffffu, heaviest, o));
+    held += __shfl_down_sync(0xffffffffu, held, o);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    warp_max[warp] = heaviest;
+    warp_held[warp] = held;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const int warps = blockDim.x >> 5;
+  heaviest = lane < warps ? warp_max[lane] : 0;
+  held = lane < warps ? warp_held[lane] : 0;
+  for (int o = 16; o > 0; o >>= 1) {
+    heaviest = max(heaviest, __shfl_down_sync(0xffffffffu, heaviest, o));
+    held += __shfl_down_sync(0xffffffffu, held, o);
+  }
+  if (lane == 0) {
+    out[0] = heaviest;
+    out[1] = (long long)__ldg(bounds + num_tiles) - __ldg(bounds);
+    out[2] = held;
+  }
+}
+
+// bounds: (num_tiles + 1,) tile ranges (tile_ranges_launch); out: three
+// int64 slots. Launched on `stream`.
+extern "C" int tile_counts_launch(const int* bounds, int num_tiles,
+                                  long long* out, cudaStream_t stream) {
+  tile_counts_kernel<<<1, 1024, 0, stream>>>(bounds, num_tiles, out);
+  return (int)cudaGetLastError();
+}

@@ -67,3 +67,39 @@ def tile_ranges(fused_sorted: torch.Tensor, dbits: int,
 
 
 tile_ranges.launches = 0
+
+TILE_COUNTS = ("tile_keys_max", "tile_keys_kept", "tiles_nonempty")
+
+
+def tile_counts_plain(bounds: torch.Tensor, out: torch.Tensor) -> None:
+    """Writes into ``out`` ((3,) int64) the summary of the tile ranges
+    ``bounds`` (``tile_ranges``): the keys of the heaviest tile, the kept
+    keys (every key below the sentinel tile) and the tiles that hold a key,
+    in the order of ``TILE_COUNTS``."""
+    n = (bounds[1:] - bounds[:-1]).to(torch.int64)
+    heaviest = n.max() if n.numel() else n.new_zeros(())
+    out.copy_(torch.stack([heaviest, n.sum(), (n > 0).sum()]))
+
+
+def tile_counts(bounds: torch.Tensor, out: torch.Tensor) -> None:
+    """``tile_counts_plain`` for CPU tensors, one launch of
+    ``csrc/histogram.cu``'s ``tile_counts_kernel`` for CUDA ones (no host
+    sync: the counters stay on the device)."""
+    cuda_build.require(bounds, "bounds", torch.int32, 1)
+    cuda_build.require(out, "out", torch.int64, 1)
+    if out.numel() != len(TILE_COUNTS) or bounds.numel() < 1:
+        raise ValueError(
+            f"need (num_tiles + 1,) bounds and ({len(TILE_COUNTS)},) out, "
+            f"got {tuple(bounds.shape)}, {tuple(out.shape)}")
+    if bounds.device.type == "cpu":
+        tile_counts_plain(bounds, out)
+        return
+    launch = cuda_build.bind("histogram", "tile_counts_launch", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    err = launch(bounds.data_ptr(), bounds.numel() - 1, out.data_ptr(),
+                 cuda_build.stream_of(bounds))
+    tile_counts.launches += 1
+    cuda_build.check(err, "tile_counts")
+
+
+tile_counts.launches = 0

@@ -32,10 +32,13 @@ the owning point of every slot; one stable ``torch.sort`` orders the keys;
 ``expand.sorted_table`` (K1b) writes the blend table in sorted order;
 ``histogram.tile_ranges`` (K2) writes the per-tile ranges from the sorted
 keys in one pass (the JAX package's histogram of the sorted tile ids and
-its exclusive cumsum). The TPU design wrote the table before the sort and
-let the sort carry it; here nothing gathers the table. The backward reads
-its sorted per-key rows through ``inverse_permutation`` of the sort's
-permutation (``segment_reduce.segment_reduce_sorted``);
+its exclusive cumsum), and ``histogram.tile_counts`` summarizes those
+ranges into the tile counters that ``ops/stages.py`` records (the keys of
+the heaviest tile, the kept keys, the tiles that hold a key). The TPU
+design wrote the table before the sort and let the sort carry it; here
+nothing gathers the table. The backward reads its sorted per-key rows
+through ``inverse_permutation`` of the sort's permutation
+(``segment_reduce.segment_reduce_sorted``);
 ``regroup_rows_by_slot``, the JAX package's regroup to pre-sort order, is
 kept for the tests.
 """
@@ -47,6 +50,7 @@ import torch
 
 from taichi_3d_gaussian_splatting_tpu_torch.ops import expand as expand_mod
 from taichi_3d_gaussian_splatting_tpu_torch.ops import histogram as histogram_mod
+from taichi_3d_gaussian_splatting_tpu_torch.ops import stages
 
 
 def tile_wh(tile: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -220,6 +224,11 @@ def build_tile_keys_and_table(
         fused_s, perm, owner, att, tiles_u=tiles_u, tile_w=tile_w,
         tile_h=tile_h, dbits=dbits, sentinel=sentinel)
     bounds = histogram_mod.tile_ranges(fused_s, dbits, num_tiles)
+    # the frame's tile counters (the heaviest tile's keys, the kept keys,
+    # the tiles that hold a key), kept on the device by ops/stages.py
+    stages.count(histogram_mod.TILE_COUNTS,
+                 lambda out: histogram_mod.tile_counts(bounds, out),
+                 bounds.device)
     kept = r.counts
     if capped:
         # the keys each point keeps below key_cap: min(end, cap) -

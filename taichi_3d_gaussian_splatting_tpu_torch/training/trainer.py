@@ -526,7 +526,7 @@ def make_train_step(config: TrainConfig, height: int, width: int,
     step.collectives = []
     if scan_steps <= 0:
         return step
-    return make_window(step, scan_steps, dev, pose_refine)
+    return make_window(step, scan_steps, dev, pose_refine, counters=True)
 
 
 def _tree_map(fn, *trees):
@@ -566,7 +566,8 @@ def window_mode(dev: torch.device) -> str:
     return "graph"
 
 
-def capture_graph(run, dev: torch.device, collectives: bool = False):
+def capture_graph(run, dev: torch.device, collectives: bool = False,
+                  counters: bool = False):
     """``run()`` (a callable of no arguments reading and writing only
     buffers it keeps at fixed addresses) as one ``torch.cuda.CUDAGraph``:
     (graph, what the captured ``run()`` returned, capture seconds, the
@@ -582,7 +583,9 @@ def capture_graph(run, dev: torch.device, collectives: bool = False):
     watchdog thread queries the events of earlier collectives, which the
     default "global" mode forbids to every thread while a capture runs.
     With ``collectives`` (``run`` holds some) the communicator is warmed by
-    one eager collective first, so every rank must capture together."""
+    one eager collective first, so every rank must capture together.
+    With ``counters`` the capture records ``stages.count``'s counters
+    (the one-card train window's tile counters)."""
     import torch.distributed as dist
 
     capture_mode = "global"
@@ -596,7 +599,7 @@ def capture_graph(run, dev: torch.device, collectives: bool = False):
         capture_mode = "thread_local"
     torch.cuda.synchronize(dev)
     mode = torch.cuda.get_sync_debug_mode()
-    with stages.capturing() as record:
+    with stages.capturing(counters) as record:
         torch.cuda.set_sync_debug_mode("error")
         try:
             run()  # counts the stage marks of the capture
@@ -628,7 +631,8 @@ class _CapturedWindow:
     before the group goes. ``release`` frees the graph and its pool at
     once, wherever it is called."""
 
-    def __init__(self, run, state: TrainState, inputs: tuple, sh_band):
+    def __init__(self, run, state: TrainState, inputs: tuple, sh_band,
+                 counters: bool = False):
         import torch.distributed as dist
 
         dev = state.scene.xyz.device
@@ -645,7 +649,8 @@ class _CapturedWindow:
             return metrics, aux
 
         (self.graph, (self.metrics, self.aux), self.capture_s,
-         self.stages) = capture_graph(steps, dev, collectives=True)
+         self.stages) = capture_graph(steps, dev, collectives=True,
+                                      counters=counters)
         if dist.is_initialized():
             from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
                 multihost as mh,
@@ -689,9 +694,11 @@ class _Window:
     it refers back to the window, so a window dropped from a cache frees
     its graph at once, without the cyclic collector."""
 
-    def __init__(self, step, k: int, dev: torch.device, pose_refine: bool):
+    def __init__(self, step, k: int, dev: torch.device, pose_refine: bool,
+                 counters: bool = False):
         self.step, self.k, self.dev = step, k, dev
         self.pose_refine = pose_refine
+        self.counters = counters
         self.mode = window_mode(dev)
         self.graphs = {}
         self.captures = 0
@@ -734,19 +741,22 @@ class _Window:
                 old.release()
             self.graphs = {}
             graph = self.graphs[key] = _CapturedWindow(
-                self.run, state, inputs, sh_band)
+                self.run, state, inputs, sh_band, counters=self.counters)
             self.captures += 1
         return graph(state, inputs)
 
 
-def make_window(step, k: int, dev: torch.device, pose_refine: bool):
+def make_window(step, k: int, dev: torch.device, pose_refine: bool,
+                counters: bool = False):
     """The window of k steps of ``step`` (a capped step: the single-device
     one of ``make_train_step`` or the data-parallel one of
     ``parallel.data_parallel.make_dp_train_step``):
     ``windowed(state, images, qs, ts, Ks, sh_band, img_idxs=None)``, each
     input stacked (k, ...) over the step's own, the pose indices (k,) or
-    (k, B_local). ``windowed.mode`` is ``window_mode(dev)``."""
-    return _Window(step, k, dev, pose_refine)
+    (k, B_local). ``windowed.mode`` is ``window_mode(dev)``. ``counters``:
+    its graph records the tile counters (``stages.count``), as the
+    single-device window's does."""
+    return _Window(step, k, dev, pose_refine, counters)
 
 
 def make_densify_step(config: TrainConfig):

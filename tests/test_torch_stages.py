@@ -16,7 +16,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.apps import render as app
 from taichi_3d_gaussian_splatting_tpu_torch.convert import (
     scene_from_jax_arrays,
 )
-from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build
+from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build, histogram
 from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 from taichi_3d_gaussian_splatting_tpu_torch.ops import stages
 from taichi_3d_gaussian_splatting_tpu_torch.training import trainer
@@ -81,7 +81,8 @@ def test_a_cpu_train_step_shows_the_seven_stages_in_order(no_cuda):
     """One CPU train step under the profiler: attributes, tiling, blend,
     loss, blend_backward, attributes_vjp, update, in that order (the grad
     factors open a first ``gs.update`` inside ``camera_pass``), with no
-    mark and no CUDA call."""
+    mark and no CUDA call; the frame's tile counters are recorded at
+    once."""
     config, state, views = _state_and_views("cpu", 1)
     step = trainer.make_train_step(config, 64, 64, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -89,7 +90,9 @@ def test_a_cpu_train_step_shows_the_seven_stages_in_order(no_cuda):
     names = [r[2] for r in _gs_ranges(prof)]
     assert tuple(_first_seen(names)) == TRAIN_STAGES
     assert names.count("gs.update") == 2
-    assert stages.read() == (0, {})
+    got = stages.read()
+    assert got[:2] == (0, {})
+    assert set(got.counts) == set(histogram.TILE_COUNTS)
 
 
 def test_an_eager_frame_has_the_four_render_stages_and_none_inside(no_cuda):
@@ -170,12 +173,12 @@ def _fake_record(done):
 def test_read_is_empty_with_no_replay_and_with_no_profiler(no_cuda):
     """No replay: nothing read. Replays made with no profiler active:
     nothing read, nothing held, no CUDA call."""
-    assert stages.read() == (0, {})
+    assert stages.read() == (0, {}, {})
     graph, rec = FakeGraph(), _fake_record([True])
     for _ in range(3):
         stages.replay(graph, rec)
     assert graph.replays == 3
-    assert stages.read() == (0, {}) and stages._pending == []
+    assert stages.read() == (0, {}, {}) and stages._pending == []
 
 
 def test_replays_under_a_profiler_are_read_per_unit(monkeypatch):
@@ -202,6 +205,57 @@ def test_replays_under_a_profiler_are_read_per_unit(monkeypatch):
     assert got.ms == pytest.approx({"gs.a": 2.0, "gs.b": 1.0, "gs.c": 0.5,
                                     "gs.d": 0.0, stages.UNMARKED: 2.0})
     assert stages.read() == got         # read() is idempotent
+
+
+def test_counters_are_read_beside_the_marks(monkeypatch):
+    """A record whose counter slots lie between its marks: the counters'
+    mean over the records read, beside ms a unit that the counter slots do
+    not change; the warm-up of a capture that records counters counts
+    their slots and fills nothing, any other capture takes none; outside a
+    capture the CPU records at once."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rec = _fake_record([True])
+    # slots 9-11: the counters of unit 0, after gs.b; the span ends at 8
+    rec.slots = torch.cat([rec.slots, torch.zeros(3, dtype=torch.int64)])
+    rec.counted = rec.used = 12
+    rec.counters = [("keys_max", 9), ("keys", 10), ("tiles", 11)]
+    written = iter([[70, 900, 12], [90, 1100, 14]])
+
+    class Graph:
+        def replay(self):  # the replay writes its counters
+            rec.slots[9:12] = torch.tensor(next(written))
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        stages.replay(Graph(), rec)
+        stages.replay(Graph(), rec)
+    got = stages.read()
+    assert got.units == 4
+    assert got.ms[stages.UNMARKED] == pytest.approx(2.0)
+    assert got.counts == {"keys_max": 80.0, "keys": 1000.0, "tiles": 13.0}
+
+    def fill(out):
+        raise AssertionError("the warm-up fills no counter")
+
+    with stages.capturing(counters=True) as warm:
+        stages.count(("a", "b"), fill, "cuda")
+    assert (warm.counted, warm.used, warm.counters) == (2, 0, [])
+    with stages.capturing() as warm:  # a render graph's, a DP window's
+        stages.count(("a", "b"), fill, "cuda")
+    assert (warm.counted, warm.used, warm.counters) == (0, 0, [])
+    stages.reset()
+    stages.count(("a", "b"), lambda out: out.copy_(torch.tensor([3, 4])),
+                 "cpu")
+    stages.count(("a", "b"), lambda out: out.copy_(torch.tensor([5, 8])),
+                 "cpu")
+    assert stages.read() == (0, {}, {"a": 4.0, "b": 6.0})
+
+
+def test_counters_outside_a_capture_on_a_card_run_nothing(no_cuda):
+    def fill(out):
+        raise AssertionError("no counter on a card outside a capture")
+
+    stages.count(("a",), fill, "cuda")
+    assert stages.read() == (0, {}, {})
 
 
 def _mark_ms_against_profiler(dev):
@@ -286,7 +340,7 @@ def test_a_window_replayed_with_no_profiler_is_not_read(dev):
                                      device=dev, key_cap=4096)
     for _ in range(3):
         state = window(state, *views, 3)[0]
-    assert stages.read() == (0, {}) and stages._pending == []
+    assert stages.read() == (0, {}, {}) and stages._pending == []
 
 
 @pytest.mark.cuda
@@ -314,3 +368,77 @@ def test_frame_graph_replays_give_one_reading_a_frame(dev):
     assert got.units == frames
     for name in RENDER_STAGES:
         assert got.ms[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_tile_counts_kernel_equals_its_plain_version(dev):
+    """``histogram.tile_counts`` on the card: the heaviest tile, the kept
+    keys and the tiles that hold a key, as the plain version gives them,
+    over empty frames, a tile count past the block's 1024 threads and
+    one heavy tile."""
+    g = torch.Generator().manual_seed(3)
+    for tiles in (0, 1, 17, 950, 3000):
+        n = torch.randint(0, 40, (tiles,), generator=g, dtype=torch.int32)
+        n[torch.rand(tiles, generator=g) < 0.3] = 0
+        if tiles > 5:
+            n[5] = 70_000
+        bounds = torch.cat([torch.zeros(1, dtype=torch.int32),
+                            torch.cumsum(n, 0, dtype=torch.int32)])
+        want = torch.empty(3, dtype=torch.int64)
+        histogram.tile_counts_plain(bounds, want)
+        got = torch.full((3,), -1, dtype=torch.int64, device=dev)
+        histogram.tile_counts(bounds.to(dev), got)
+        assert got.cpu().tolist() == want.tolist(), tiles
+
+
+@pytest.mark.cuda
+def test_a_replayed_frame_reads_its_tile_counters(dev):
+    """A capped frame captured with counters: its tile counters, read
+    from replays under a profiler, are the plain summary of the tile
+    ranges the replay wrote; captured without (as a render graph is), it
+    records none and launches no counter kernel; the single-device window
+    of 8 steps reads one record of them a step."""
+    xyz, feats, invalid = make_scene(200, 7)
+    cfg = R.RasterizerConfig(tile_size=32, rgb_only=True)
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    scene = to(xyz), to(feats), to(invalid)
+    q, t = to(Q_ID), to(T_ID)
+
+    def frame():
+        raw, radius = R.compute_raw_attrs(scene[0], scene[1], q, t, cam)
+        keys, _, _ = R.build_keys(raw, radius, scene[2], cam, cfg, 4096)
+        return keys.tile_start, keys.tile_end
+
+    launches = histogram.tile_counts.launches
+    graph, (start, end), _, rec = trainer.capture_graph(frame, dev,
+                                                        counters=True)
+    assert histogram.tile_counts.launches == launches + 1  # the capture's
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            stages.replay(graph, rec)
+    n = (end - start).long().cpu()
+    assert stages.read().counts == {
+        "tile_keys_max": int(n.max()), "tile_keys_kept": int(n.sum()),
+        "tiles_nonempty": int((n > 0).sum())}
+    assert int(n.sum()) > 0
+    stages.reset()
+    graph, _, _, rec = trainer.capture_graph(frame, dev)
+    assert histogram.tile_counts.launches == launches + 1
+    assert rec.counters == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        stages.replay(graph, rec)
+    assert stages.read().counts == {}
+    stages.reset()
+    config, state, views = _state_and_views(dev, 8)
+    window = trainer.make_train_step(config, 64, 64, scan_steps=8,
+                                     device=dev, key_cap=4096)
+    state = window(state, *views, 3)[0]
+    torch.cuda.synchronize()
+    stages.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        window(state, *views, 3)
+    got = stages.read()
+    assert got.units == 8
+    assert set(got.counts) == set(histogram.TILE_COUNTS)
+    assert stages._count_records["tiles_nonempty"] == 8

@@ -122,7 +122,7 @@ def test_a_released_graph_is_captured_anew(monkeypatch):
     made = []
 
     class Captured:
-        def __init__(self, run, state, inputs, sh_band):
+        def __init__(self, run, state, inputs, sh_band, counters=False):
             self.graph, self.released = object(), 0
             made.append(self)
 
