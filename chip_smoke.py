@@ -1141,7 +1141,7 @@ def train_stage_ms(config, state, inputs) -> dict:
     import dataclasses
 
     from taichi_3d_gaussian_splatting_tpu_torch.ops import (
-        blend, segment_reduce as sr, tiling,
+        attributes as A, blend, segment_reduce as sr, tiling,
     )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
     from taichi_3d_gaussian_splatting_tpu_torch.training import (
@@ -1159,16 +1159,15 @@ def train_stage_ms(config, state, inputs) -> dict:
     grid = (WIDTH // tile[0], HEIGHT // tile[1])
     reps = 20
     out = {}
-    x = s.xyz.detach().requires_grad_(True)
-    f = s.features.detach().requires_grad_(True)
+    x, f = s.xyz.detach(), s.features.detach()
 
     def attrs():
-        with torch.enable_grad():
+        with torch.no_grad():
             return R.compute_raw_attrs(x, f, q, t, cam, band)
-    out["attributes (forward, building the graph)"] = both_ms(attrs, reps, EW)
-    raw, radius = attrs()
-    raw_v = R.RawAttrs(*(a.detach() for a in raw))
-    keys_fn = lambda: R.build_keys(raw_v, radius.detach(), s.invalid,  # noqa: E731
+    out["attributes (the kernel)"] = both_ms(attrs, reps,
+                                             ("point_attributes_kernel(",))
+    raw_v, radius = attrs()
+    keys_fn = lambda: R.build_keys(raw_v, radius, s.invalid,  # noqa: E731
                                    cam, cfg)
     out["tiling (cull, keys, K1a, sort, K1b, K2)"] = both_ms(
         keys_fn, reps, ("slot_keys_kernel(", "sorted_table_kernel(",
@@ -1212,11 +1211,10 @@ def train_stage_ms(config, state, inputs) -> dict:
         raw_v, keys, table, out_tiles, d_tiles, tile, grid, cfg)
 
     def vjp():
-        return torch.autograd.grad(
-            (raw.uv, raw.conic, raw.opacity, raw.color), (x, f),
-            (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color),
-            retain_graph=True)
-    out["attribute VJP (autograd)"] = both_ms(vjp, reps, EW)
+        return A.point_attributes_vjp(x, f, q, t, K, band, 0, None, d_raw.uv,
+                                      d_raw.conic, d_raw.opacity, d_raw.color)
+    out["attribute VJP (the kernel)"] = both_ms(
+        vjp, reps, ("point_attributes_vjp_kernel(",))
     d_xyz, d_feat = vjp()
     ftx, ptx = trainer.make_optimizers(config)
     gf = torch.from_numpy(trainer.grad_factor_vector(cfg)).to(s.xyz.device)
@@ -1427,10 +1425,11 @@ def plain_calls():
     """Counts, while open, the calls of the plain versions of the main
     path's kernels (the wrappers take them for CPU tensors only)."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops import (
-        blend, expand, histogram, segment_reduce as sr,
+        attributes as A, blend, expand, histogram, segment_reduce as sr,
     )
 
-    fns = [(expand, "slot_keys_plain"), (expand, "sorted_table_plain"),
+    fns = [(A, "point_attributes_vjp_plain"),
+           (expand, "slot_keys_plain"), (expand, "sorted_table_plain"),
            (histogram, "tile_ranges_plain"), (blend, "blend_forward_plain"),
            (blend, "blend_backward_plain"),
            (sr, "segment_reduce_sorted_plain")]
@@ -1681,11 +1680,12 @@ def plain_route():
     versions on the card's tensors (the comparisons of phases 6-8). No
     launch counter moves."""
     from taichi_3d_gaussian_splatting_tpu_torch.ops import (
-        blend, expand, histogram, segment_reduce as sr,
+        attributes as A, blend, expand, histogram, segment_reduce as sr,
     )
     from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
 
     swaps = [(R, "point_attributes", R.point_attributes_plain),
+             (R, "point_attributes_vjp", A.point_attributes_vjp_plain),
              (expand, "slot_keys", expand.slot_keys_plain),
              (expand, "sorted_table", expand.sorted_table_plain),
              (histogram, "tile_ranges", histogram.tile_ranges_plain),

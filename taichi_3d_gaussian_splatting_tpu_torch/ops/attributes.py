@@ -4,8 +4,11 @@ Port of ``taichi_3d_gaussian_splatting_tpu/ops/attributes.py``. Invalid and
 invisible slots are projected too and masked downstream.
 ``compute_point_attributes`` is dense torch (the autograd path);
 ``point_attributes`` computes what the rasterizer's attribute stage needs
-of a frame without gradient: CUDA tensors go to its kernel in
-``csrc/attributes.cu``, CPU tensors to ``point_attributes_plain``.
+of a frame without gradient, and ``point_attributes_vjp`` maps the
+cotangents of its uv, conic, opacity and colour back to xyz and the
+features without a tape: CUDA tensors go to their kernels in
+``csrc/attributes.cu``, CPU tensors to ``point_attributes_plain`` and
+autograd of it (``point_attributes_vjp_plain``).
 
 Feature layout:
   feat[0:4]   quaternion xyzw
@@ -131,24 +134,16 @@ def point_attributes_plain(xyz, features, q_pc, t_pc, K, sh_max_band=3,
             a.radius_xy)
 
 
-def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
-                     q_pc: torch.Tensor, t_pc: torch.Tensor, K: torch.Tensor,
-                     sh_max_band: int = 3, row0: int = 0,
-                     point_object_id: Optional[torch.Tensor] = None):
-    """Every pool slot's blend inputs of the camera pose (q_pc xyzw, t_pc)
-    in the world frame, shapes (4,)/(3,), or per-object poses (K, 4)/(K, 3)
-    picked by ``point_object_id``: (uv (N, 2) with v less ``row0``, cov2d
-    (N, 3), conic (N, 4), opacity (N,), color (N, 3), depth (N,), radius_xy
-    (N, 2)), all f32. Takes no gradient: it raises where one is wanted. On a
-    card one launch, equal to the plain version bit for bit; the object ids
-    are int32 there, and one outside [0, K) gives NaN fields (the plain
-    version raises, or wraps a negative id)."""
-    if wants_grad(xyz, features, q_pc, t_pc):
-        raise ValueError("point_attributes takes no gradient: use "
-                         "point_attributes_plain")
-    if xyz.device.type == "cpu":
-        return point_attributes_plain(xyz, features, q_pc, t_pc, K,
-                                      sh_max_band, row0, point_object_id)
+def _sh_coeffs(sh_max_band) -> int:
+    """The SH coefficients a channel keeps at ``sh_max_band``."""
+    return min((int(sh_max_band) + 1) ** 2, len(_COEFF_BAND))
+
+
+def _kernel_inputs(what, xyz, features, q_pc, t_pc, K, point_object_id):
+    """The attribute kernels' input checks: raise ValueError or TypeError
+    on what the kernels do not take. Returns (xyz, features, q_pc, t_pc,
+    ids), the pose contiguous, ids the int32 object ids where per-object
+    poses pick the pose, else None."""
     n = xyz.shape[0]
     cuda_build.require(xyz, "xyz", torch.float32, 2)
     cuda_build.require(features, "features", torch.float32, 2)
@@ -175,7 +170,31 @@ def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
     cuda_build.require(t_pc, "t_pc", torch.float32, t_pc.dim())
     args = (features, q_pc, t_pc, K) + (() if ids is None else (ids,))
     if any(a.device != xyz.device for a in args):
-        raise ValueError("point_attributes: inputs lie on different devices")
+        raise ValueError(f"{what}: inputs lie on different devices")
+    return xyz, features, q_pc, t_pc, ids
+
+
+def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
+                     q_pc: torch.Tensor, t_pc: torch.Tensor, K: torch.Tensor,
+                     sh_max_band: int = 3, row0: int = 0,
+                     point_object_id: Optional[torch.Tensor] = None):
+    """Every pool slot's blend inputs of the camera pose (q_pc xyzw, t_pc)
+    in the world frame, shapes (4,)/(3,), or per-object poses (K, 4)/(K, 3)
+    picked by ``point_object_id``: (uv (N, 2) with v less ``row0``, cov2d
+    (N, 3), conic (N, 4), opacity (N,), color (N, 3), depth (N,), radius_xy
+    (N, 2)), all f32. Takes no gradient: it raises where one is wanted. On a
+    card one launch, equal to the plain version bit for bit; the object ids
+    are int32 there, and one outside [0, K) gives NaN fields (the plain
+    version raises, or wraps a negative id)."""
+    if wants_grad(xyz, features, q_pc, t_pc):
+        raise ValueError("point_attributes takes no gradient: use "
+                         "point_attributes_plain")
+    if xyz.device.type == "cpu":
+        return point_attributes_plain(xyz, features, q_pc, t_pc, K,
+                                      sh_max_band, row0, point_object_id)
+    n = xyz.shape[0]
+    xyz, features, q_pc, t_pc, ids = _kernel_inputs(
+        "point_attributes", xyz, features, q_pc, t_pc, K, point_object_id)
     out = [torch.empty(shape, dtype=torch.float32, device=xyz.device)
            for shape in ((n, 2), (n, 3), (n, 4), (n,), (n, 3), (n,), (n, 2))]
     if n == 0:
@@ -187,7 +206,7 @@ def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
     err = launch(xyz.data_ptr(), features.data_ptr(), n, q_pc.data_ptr(),
                  t_pc.data_ptr(), None if ids is None else ids.data_ptr(),
                  q_pc.shape[0] if ids is not None else 1, K.data_ptr(),
-                 min((int(sh_max_band) + 1) ** 2, len(_COEFF_BAND)),
+                 _sh_coeffs(sh_max_band),
                  float(row0), *(o.data_ptr() for o in out),
                  cuda_build.stream_of(xyz))
     point_attributes.launches += 1
@@ -196,6 +215,78 @@ def point_attributes(xyz: torch.Tensor, features: torch.Tensor,
 
 
 point_attributes.launches = 0
+
+
+def point_attributes_vjp_plain(xyz, features, q_pc, t_pc, K, sh_max_band=3,
+                               row0=0, point_object_id=None, d_uv=None,
+                               d_conic=None, d_opacity=None, d_color=None):
+    """Plain PyTorch version of :func:`point_attributes_vjp` (same
+    contract): autograd of :func:`point_attributes_plain`."""
+    x = xyz.detach().requires_grad_(True)
+    f = features.detach().requires_grad_(True)
+    with torch.enable_grad():
+        uv, _, conic, opacity, color, _, _ = point_attributes_plain(
+            x, f, q_pc.detach(), t_pc.detach(), K, sh_max_band, row0,
+            point_object_id)
+        return torch.autograd.grad((uv, conic, opacity, color), (x, f),
+                                   (d_uv, d_conic, d_opacity, d_color))
+
+
+def point_attributes_vjp(xyz: torch.Tensor, features: torch.Tensor,
+                         q_pc: torch.Tensor, t_pc: torch.Tensor,
+                         K: torch.Tensor, sh_max_band: int = 3,
+                         row0: int = 0,
+                         point_object_id: Optional[torch.Tensor] = None,
+                         d_uv: torch.Tensor = None,
+                         d_conic: torch.Tensor = None,
+                         d_opacity: torch.Tensor = None,
+                         d_color: torch.Tensor = None):
+    """The VJP of :func:`point_attributes`' uv, conic, opacity and colour at
+    the same inputs: their cotangents d_uv (N, 2), d_conic (N, 4),
+    d_opacity (N,) and d_color (N, 3) to (d_xyz (N, 3), d_features (N, 56)),
+    f32; the pose takes none. On a card one launch that recomputes each
+    point (no tape), equal to autograd of the plain version to f32
+    rounding, with autograd's subgradient at every guard; the same bits at
+    every launch. ``row0`` moves no gradient. The inputs are checked on
+    either device; CPU tensors go to :func:`point_attributes_vjp_plain`."""
+    n = xyz.shape[0]
+    plain_args = (xyz, features, q_pc, t_pc, K, sh_max_band, row0,
+                  point_object_id, d_uv, d_conic, d_opacity, d_color)
+    xyz, features, q_pc, t_pc, ids = _kernel_inputs(
+        "point_attributes_vjp", xyz, features, q_pc, t_pc, K,
+        point_object_id)
+    cots = (("d_uv", d_uv, (n, 2)), ("d_conic", d_conic, (n, 4)),
+            ("d_opacity", d_opacity, (n,)), ("d_color", d_color, (n, 3)))
+    for name, c, shape in cots:
+        if c is None:
+            raise ValueError(f"point_attributes_vjp: {name} is missing")
+        cuda_build.require(c, name, torch.float32, len(shape))
+        if c.shape != shape or c.device != xyz.device:
+            raise ValueError(f"{name}: need {shape} on {xyz.device}, got "
+                             f"{tuple(c.shape)} on {c.device}")
+    if xyz.device.type == "cpu":
+        return point_attributes_vjp_plain(*plain_args)
+    d_xyz = torch.empty((n, 3), dtype=torch.float32, device=xyz.device)
+    d_features = torch.empty((n, 56), dtype=torch.float32,
+                             device=xyz.device)
+    if n == 0:
+        return d_xyz, d_features
+    launch = cuda_build.bind("attributes", "point_attributes_vjp_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int] + [ctypes.c_void_p] * 7)
+    err = launch(xyz.data_ptr(), features.data_ptr(), n, q_pc.data_ptr(),
+                 t_pc.data_ptr(), None if ids is None else ids.data_ptr(),
+                 q_pc.shape[0] if ids is not None else 1, K.data_ptr(),
+                 _sh_coeffs(sh_max_band), d_uv.data_ptr(), d_conic.data_ptr(),
+                 d_opacity.data_ptr(), d_color.data_ptr(), d_xyz.data_ptr(),
+                 d_features.data_ptr(), cuda_build.stream_of(xyz))
+    point_attributes_vjp.launches += 1
+    cuda_build.check(err, "point_attributes_vjp")
+    return d_xyz, d_features
+
+
+point_attributes_vjp.launches = 0
 
 
 def frustum_cull_mask(

@@ -11,8 +11,9 @@ Port of ``taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py``:
   -> blend_forward kernel -> _assemble (tiles -> image)
   backward: blend_backward kernel -> the segment_reduce kernel, which
      reads the sorted per-key rows through the inverse key permutation ->
-     per-point raw-attribute gradients -> torch autograd of
-     compute_raw_attrs -> xyz, features.
+     per-point raw-attribute gradients -> xyz, features: the
+     attribute-VJP kernel (``rasterize_fwd_ctx`` on a card), else torch
+     autograd of compute_raw_attrs.
 
 ``rasterize`` differentiates through ``_BlendCore`` (a
 ``torch.autograd.Function``) when xyz, features or the camera pose (q, t)
@@ -40,6 +41,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.attributes import (
     frustum_cull_mask,
     point_attributes,
     point_attributes_plain,
+    point_attributes_vjp,
     wants_grad,
 )
 from taichi_3d_gaussian_splatting_tpu_torch.ops.packing import round_bf16
@@ -411,20 +413,43 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
     """Forward pass returning (output, RenderContext, attrs_vjp) for
     ``rasterize_bwd``. ``attrs_vjp(d_raw)`` maps raw-attribute cotangents
     to (d_xyz, d_features), or with ``with_pose_grads`` to (d_xyz,
-    d_features, d_q, d_t), by autograd of ``compute_raw_attrs``; it can be
-    called once. The output carries no graph. ``key_cap`` selects the
-    capped key buffers (``build_keys``)."""
+    d_features, d_q, d_t). On a card without pose gradients the attributes
+    take the kernel pair and no tape: ``point_attributes`` without grad,
+    and ``attrs_vjp`` is ``point_attributes_vjp``, which recomputes each
+    point. On the CPU, and with ``with_pose_grads`` (the pose cotangent
+    sums over every point, which the kernel does not), they take autograd's
+    tape of ``compute_raw_attrs``, and ``attrs_vjp`` can be called once.
+    The output carries no graph. ``key_cap`` selects the capped key
+    buffers (``build_keys``)."""
     tile = _cfg_tile(cfg)
     _check_size(camera, tile)
     pin_f32_matmul()
-    x = xyz.detach().requires_grad_(True)
-    f = features.detach().requires_grad_(True)
-    q = q_pointcloud_camera.detach().requires_grad_(with_pose_grads)
-    t = t_pointcloud_camera.detach().requires_grad_(with_pose_grads)
-    inputs = (x, f, q, t) if with_pose_grads else (x, f)
-    with torch.enable_grad(), stage("gs.attributes"):
-        raw, radius = compute_raw_attrs(x, f, q, t, camera, sh_max_band,
-                                        point_object_id)
+    if xyz.device.type == "cuda" and not with_pose_grads:
+        x, f = xyz.detach(), features.detach()
+        q, t = q_pointcloud_camera.detach(), t_pointcloud_camera.detach()
+        with torch.no_grad(), stage("gs.attributes"):
+            raw, radius = compute_raw_attrs(x, f, q, t, camera, sh_max_band,
+                                            point_object_id)
+
+        def attrs_vjp(d_raw: RawAttrs):
+            return point_attributes_vjp(
+                x, f, q, t, camera.K, sh_max_band, camera.row0,
+                point_object_id, d_raw.uv, d_raw.conic, d_raw.opacity,
+                d_raw.color)
+    else:
+        x = xyz.detach().requires_grad_(True)
+        f = features.detach().requires_grad_(True)
+        q = q_pointcloud_camera.detach().requires_grad_(with_pose_grads)
+        t = t_pointcloud_camera.detach().requires_grad_(with_pose_grads)
+        inputs = (x, f, q, t) if with_pose_grads else (x, f)
+        with torch.enable_grad(), stage("gs.attributes"):
+            raw, radius = compute_raw_attrs(x, f, q, t, camera, sh_max_band,
+                                            point_object_id)
+
+        def attrs_vjp(d_raw: RawAttrs):
+            return torch.autograd.grad(
+                (raw.uv, raw.conic, raw.opacity, raw.color), inputs,
+                (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color))
     with torch.no_grad():
         # radius only feeds the tiling stage: it is cut from the graph
         raw_values = RawAttrs(*(a.detach() for a in raw))
@@ -439,12 +464,6 @@ def rasterize_fwd_ctx(xyz, features, invalid_mask, q_pointcloud_camera,
             out = _assemble(out_tiles, camera, cfg)
     ctx = RenderContext(raw=raw_values, keys=keys, table=table,
                         out_tiles=out_tiles, visible=visible)
-
-    def attrs_vjp(d_raw: RawAttrs):
-        return torch.autograd.grad(
-            (raw.uv, raw.conic, raw.opacity, raw.color), inputs,
-            (d_raw.uv, d_raw.conic, d_raw.opacity, d_raw.color))
-
     return out, ctx, attrs_vjp
 
 

@@ -8,7 +8,8 @@ multi-device steps the loop drives are in ``parallel/``.
 (``rasterize_fwd_ctx``: attributes, tile keys, the blend kernel), the L1 +
 SSIM loss, the backward (``rasterize_bwd``: the blend_backward kernel, the
 segment_reduce kernel reading its sorted rows through the inverse key
-permutation, autograd of the attributes), the grad factors, one Adam on
+permutation, the attributes' VJP: the kernel on a card, autograd on the
+CPU and with pose refinement), the grad factors, one Adam on
 the features and one on the positions (staircase-decayed learning rate),
 and ``controller.accumulate``. It returns a new state and leaves its input as
 it was. With ``pose_refinement`` the step also refines the camera pose of

@@ -21,7 +21,11 @@ to 5e-4 + 1e-3 |plain| (the JAX package's gradient gate), the count and
 the |grad_uv| image (1e-4) as the forward's. The point-attributes kernel
 keeps the plain version's operation order and rounding, so its fields
 agree to rtol 2e-6 / atol 1e-6 (a few ulps) with the same non-finite
-pattern, and the cull mask and key total it gives exactly.
+pattern, and the cull mask and key total it gives exactly. The
+attribute-VJP kernel adds its chain-rule terms in autograd's order, so its
+gradients agree with autograd of the plain version to the JAX parity
+test's rtol 1e-4 / atol 1e-5 (``test_torch_attributes_vjp.py``), and two
+launches give the same bits.
 """
 import importlib.util
 import tempfile
@@ -241,12 +245,11 @@ OBJECT_POSES = (
 def _attr_scene(kind, n=160):
     """(xyz, features, invalid) numpy: the odd scene (zero rows, points
     behind the camera, at its centre and on its plane), with NaN and inf
-    in some feature columns for "nonfinite", or a seeded 200k-point
-    Truck-like scene (60% in a box in front of the camera, the rest on a
-    shell behind and beside it)."""
+    in some feature columns for "nonfinite", or a seeded Truck-like scene
+    of n points (60% in a box in front of the camera, the rest on a shell
+    behind and beside it; ``_attr_args`` takes 200,000 by default)."""
     if kind == "truck":
         rng = np.random.default_rng(20_000_003)
-        n = 200_000
         vis = rng.random(n) < 0.6
         theta = rng.uniform(0.6 * np.pi, 1.4 * np.pi, n)
         rad = rng.uniform(5.0, 30.0, n)
@@ -272,8 +275,9 @@ def _attr_scene(kind, n=160):
     return xyz, feats, invalid
 
 
-def _attr_args(dev, kind, objects):
-    xyz, feats, invalid = _attr_scene(kind)
+def _attr_args(dev, kind, objects, n=None):
+    xyz, feats, invalid = _attr_scene(kind, n or (200_000 if kind == "truck"
+                                                  else 160))
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     if objects:
         q, t = map(to, OBJECT_POSES)
@@ -317,6 +321,101 @@ def test_point_attributes_matches_plain(dev, kind, band, objects, row0):
     assert bool(torch.isfinite(raw.uv).any())
     if kind == "nonfinite":
         assert bool(torch.isnan(raw.color).any())
+
+
+VJP_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _vjp_cotangents(n, seed, dev):
+    """Seeded cotangents of uv, conic, opacity and colour."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((n, 2), (n, 4), (n,), (n, 3))]
+
+
+@pytest.mark.parametrize("kind", ["scene", "odd"])
+@pytest.mark.parametrize("band", [0, 1, 2, 3])
+@pytest.mark.parametrize("objects", [False, True])
+@pytest.mark.parametrize("row0", [0, 40])
+def test_point_attributes_vjp_matches_plain(dev, kind, band, objects, row0):
+    """The attribute-VJP kernel (one launch) against autograd of the plain
+    version (``point_attributes_vjp_plain``) for seeded cotangents on every
+    row, the odd scene's guard rows included: finite on every row, and
+    within the tolerance of ``test_torch_attributes_vjp.py``."""
+    if kind == "scene":
+        xyz, feats, _ = make_scene(160, 3)
+        to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        xyz, feats = to(xyz), to(feats)
+        _, _, _, q, t, ids = _attr_args(dev, "odd", objects)
+    else:
+        xyz, feats, _, q, t, ids = _attr_args(dev, kind, objects)
+    K = torch.from_numpy(make_K()).to(dev)
+    cots = _vjp_cotangents(len(xyz), 100 * band + 10 * objects + row0, dev)
+    before = attrs.point_attributes_vjp.launches
+    got = attrs.point_attributes_vjp(xyz, feats, q, t, K, band, row0, ids,
+                                     *cots)
+    assert attrs.point_attributes_vjp.launches == before + 1
+    want = attrs.point_attributes_vjp_plain(xyz, feats, q, t, K, band, row0,
+                                            ids, *cots)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(w).all())
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, **VJP_TOL)
+    # the SH columns above the band take the band mask's zero gradient
+    keep = (band + 1) ** 2
+    sh = got[1][:, 8:].reshape(-1, 3, 16)
+    assert not bool(sh[:, :, keep:].any())
+    assert bool(sh[:, :, :keep].any())
+
+
+def test_point_attributes_vjp_repeats_its_bits_on_a_truck_scene(dev):
+    """At the Truck cell's 428,687 points two launches give the same bits
+    (each row is written once, nothing summed across threads), within the
+    tolerance of autograd of the plain version."""
+    xyz, feats, _, q, t, _ = _attr_args(dev, "truck", False, n=428_687)
+    K = torch.from_numpy(np.asarray(
+        [[580.0, 0.0, 480.0], [0.0, 580.0, 272.0], [0.0, 0.0, 1.0]],
+        np.float32)).to(dev)
+    cots = _vjp_cotangents(len(xyz), 428_687, dev)
+    first = attrs.point_attributes_vjp(xyz, feats, q, t, K, 3, 0, None,
+                                       *cots)
+    second = attrs.point_attributes_vjp(xyz, feats, q, t, K, 3, 0, None,
+                                        *cots)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = attrs.point_attributes_vjp_plain(xyz, feats, q, t, K, 3, 0, None,
+                                            *cots)
+    for g, w in zip(first, want):
+        torch.testing.assert_close(g, w, **VJP_TOL)
+
+
+def test_rasterize_fwd_ctx_takes_the_kernel_pair_without_a_tape(dev):
+    """On a card without pose gradients the attributes run the forward
+    kernel under no_grad (autograd saves no tensor) and ``attrs_vjp`` is
+    one launch of the VJP kernel; with pose gradients the tape, as on the
+    CPU, and no attribute kernel."""
+    xyz, feats, invalid = (torch.from_numpy(a).to(dev)
+                           for a in make_scene(200, 7))
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
+    cfg = R.RasterizerConfig(tile_size=32)
+    q, t = (torch.from_numpy(a).to(dev) for a in (Q_ID, T_ID))
+    counts = []
+    for pose in (False, True):
+        saved = []
+        fwd0 = attrs.point_attributes.launches
+        vjp0 = attrs.point_attributes_vjp.launches
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda x: saved.append(x) or x, lambda x: x):
+            out, ctx, vjp = R.rasterize_fwd_ctx(
+                xyz, feats, invalid, q, t, cam, cfg, with_pose_grads=pose)
+        d_rgb = torch.ones_like(out.rgb)
+        grads, _ = R.rasterize_bwd(ctx, vjp, d_rgb, cam, cfg)
+        counts.append((len(saved), attrs.point_attributes.launches - fwd0,
+                       attrs.point_attributes_vjp.launches - vjp0,
+                       len(grads)))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert counts[0] == (0, 1, 1, 2)
+    assert counts[1][0] > 0 and counts[1][1:] == (0, 0, 4)
 
 
 def test_point_attributes_matches_plain_on_a_truck_scene(dev):
@@ -534,14 +633,14 @@ def test_train_step_launches_every_kernel(dev):
     counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
                 blend.blend_forward, blend.blend_backward,
                 sr.segment_reduce_sorted, sr.segment_reduce,
-                attrs.point_attributes)
+                attrs.point_attributes, attrs.point_attributes_vjp)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
-    # the step's attributes take autograd's plain path, never the kernel
+    # the step's attributes take the kernel pair, no autograd tape
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 6 + [0, 0]
+            for f, b in zip(counters, before)] == [1] * 6 + [0, 1, 1]
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
@@ -611,6 +710,28 @@ def test_window_graph_equals_eager_steps(dev):
     again, _, _ = window(got, gts, qs, ts, Ks, 3)  # the static state itself
     assert again.scene.features.data_ptr() == got.scene.features.data_ptr()
     assert int(again.feat_opt.count) == 6
+
+
+def test_window_of_8_launches_the_attribute_pair_once_a_step(dev):
+    """A captured window of 8 steps holds the attribute kernel and the
+    attribute-VJP kernel 8 times each: the wrappers count 8 in the eager
+    warm-up and 8 in the capture; a replay ticks no counter."""
+    xyz, feats, invalid = make_scene(200, 7)
+    config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
+    state = trainer.init_train_state(
+        scene_from_jax_arrays(xyz, feats, invalid, device=dev), config)
+    inputs = _window_inputs(dev, k=8)
+    window = trainer.make_train_step(config, 64, 64, scan_steps=8,
+                                     device=dev, key_cap=4096)
+    pair = (attrs.point_attributes, attrs.point_attributes_vjp)
+    before = [f.launches for f in pair]
+    state = window(state, *inputs, 3)[0]
+    assert (window.mode, window.captures) == ("graph", 1)
+    assert [f.launches - b for f, b in zip(pair, before)] == [16, 16]
+    before = [f.launches for f in pair]
+    got = window(state, *inputs, 3)[0]
+    assert [f.launches - b for f, b in zip(pair, before)] == [0, 0]
+    assert int(got.feat_opt.count) == 16
 
 
 def _window_inputs(dev, k=3):
