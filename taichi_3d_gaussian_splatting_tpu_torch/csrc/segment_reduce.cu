@@ -19,11 +19,10 @@
 // every slot inv[k] once and then the rows' lanes (rows r0 .. r0 + 11 of
 // a block's row pass; 12 rows, the backward's, take one pass). Slots are
 // taken two at a time, their loads issued before their adds. Segments
-// longer than kLong slots (at the full-width frame of chip_smoke.py, 3.7%
-// of the points with keys and 14% of the keys, up to 154 slots a point;
-// one thread a point would leave a warp 5.6x the even share of key
-// steps: kernel_variants/keys_step0.py) go to the block's warps after the
-// short ones:
+// longer than kLong slots (at the Truck cell's full-width frame, 3.7% of
+// the points with keys and 14% of the keys, up to 154 slots a point; one
+// thread a point would leave a warp 5.6x the even share of key steps) go
+// to the block's warps after the short ones:
 // the warp loads 32 slots at once, parks their rows in shared memory, and
 // lane r adds row r's 32 values in k order. Every sum is thus added in k
 // order from 0, as a sequential loop does: the result repeats bit for bit

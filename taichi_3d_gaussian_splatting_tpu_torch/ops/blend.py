@@ -115,7 +115,7 @@ def warp_key_cull_plain(tab: torch.Tensor, *, tile) -> torch.Tensor:
     (K1's tile test) + WARP_CULL_SLACK x the magnitude of the exponent's
     terms, so no pixel of the warp can reach alpha >= 1/255 in f32. A
     conic that is NaN or not positive definite is never dropped. The
-    kernels do not call this; the tests and ``chip_smoke.py`` do."""
+    kernels do not call this; the tests do."""
     tile_w, tile_h = tile_wh(tile)
     return rect_key_cull_plain(tab, *warp_layout(tile_w, tile_h,
                                                  tab.device)[1:])

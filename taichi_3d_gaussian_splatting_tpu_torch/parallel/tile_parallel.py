@@ -16,8 +16,8 @@ Gaussian pool. Semantics match the single-device render:
   the principal point instead (``K[1, 2] -= rank * band_h``); the band's v
   then comes out of the projection rounded otherwise than the full
   image's, and at 1920x1088 that round-off moved a pixel of the band
-  frame 4.7e-4 from the single-device frame (an H100 run of
-  chip_smoke.py phase 11). Taking the full image's v less row0 is one f32
+  frame 4.7e-4 from the single-device frame (a two-rank band step on an
+  H100). Taking the full image's v less row0 is one f32
   subtraction, exact for every splat centred in the band, so a band's
   pixels blend as the full image's do;
 - splats whose extent misses a band produce EMPTY tile boxes

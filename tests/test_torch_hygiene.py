@@ -33,7 +33,13 @@ BANNED = re.compile(r"^(jax|jaxlib|optax|taichi_3d_gaussian_splatting_tpu(?!_tor
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port, and the card tests with what they import of tests/ (the
+    card runs them with ``--noconftest``, on a machine without JAX)."""
+    tests = ROOT / "tests"
+    return sorted(PORT.rglob("*.py")) + [
+        tests / f"{name}.py" for name in (
+            "test_torch_kernels_cuda", "test_torch_stages",
+            "test_torch_card_paths", "torch_port_scenes")]
 
 
 def _imported_modules(path: Path):

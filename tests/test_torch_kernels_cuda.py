@@ -1,21 +1,25 @@
 """Card-only: each CUDA kernel of the port against its plain PyTorch version
-on the same inputs, at the small size of the CPU tests, and one render and
-one train step launching every kernel of its path.
+on the same inputs, at the small size of the CPU tests and at the Truck
+cell's full-width frame (428,687 points at 960x544, 32x32 tiles), and one
+render and one train step launching every kernel of its path.
 
 Needs an NVIDIA card and nvcc; skipped elsewhere. This file imports no JAX,
 so it runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
-Tolerances: the key expansion (slot_keys, sorted_table),
-tile_ranges and segment_reduce must match bit for bit (integer and copy kernels, and
-segment sums added in slot order like their plain versions); the sorted
-table also equals the pre-sort table gathered by the sort's permutation,
-and the segment sum through the inverse permutation equals the first
-design's regroup + kernel (``kernel_variants/``); the blend kernel keeps a sequential transmittance
+Tolerances: the key expansion (slot_keys, sorted_table), tile_ranges,
+tile_counts, the point-attributes kernel at the full-width frame and
+segment_reduce must match bit for bit (integer and copy kernels, the
+attribute kernel's rounding kept, and segment sums added in slot order
+like their plain versions); the sorted table also equals the pre-sort
+table gathered by the sort's permutation, and the segment sum through the
+inverse permutation equals the unsorted kernel on the regrouped rows; the
+blend kernel keeps a sequential transmittance
 where the plain version takes a parallel cumprod, so rgb/alpha agree to
-1e-4, depth to 5e-4 (the JAX package's own image gates) and, at this
-size, the count exactly. blend_backward sums each key's pixel terms in
+1e-4, depth to 5e-4 (the JAX package's own image gates) and the count
+exactly at 64x64 and on all but 0.01% of the full-width pixels (f32
+rounding at a threshold). blend_backward sums each key's pixel terms in
 another order than the plain version's torch.sum: rows 0..8 and 10 agree
 to 5e-4 + 1e-3 |plain| (the JAX package's gradient gate), the count and
 the |grad_uv| image (1e-4) as the forward's. The point-attributes kernel
@@ -27,9 +31,7 @@ gradients agree with autograd of the plain version to the JAX parity
 test's rtol 1e-4 / atol 1e-5 (``test_torch_attributes_vjp.py``), and two
 launches give the same bits.
 """
-import importlib.util
-import tempfile
-from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -56,6 +58,8 @@ from tests.torch_port_scenes import (
     make_K,
     make_odd_scene,
     make_scene,
+    make_truck_scene,
+    small_frame,
 )
 
 pytestmark = pytest.mark.cuda
@@ -66,18 +70,6 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
     return torch.device("cuda")
-
-
-def _frame(dev, tile=(32, 32), n=200, seed=7, scale_shift=0.0):
-    xyz, feats, invalid = make_scene(n, seed)
-    feats[:, 4:7] += scale_shift
-    cfg = R.RasterizerConfig(tile_size=tile[0], tile_h=tile[1])
-    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
-    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    raw, radius = R.compute_raw_attrs(to(xyz), to(feats), to(Q_ID), to(T_ID),
-                                      cam)
-    return cfg, cam, raw, radius, to(invalid), (to(xyz), to(feats),
-                                                to(invalid))
 
 
 def _expand_inputs(cfg, cam, raw, radius, invalid, nonfinite=False):
@@ -112,8 +104,8 @@ def test_tile_ranges_matches_plain(dev, case, num_tiles):
     sentinel = ((num_tiles + 1) << dbits) - 1
     rng = np.random.default_rng(num_tiles)
     if case == "frame":
-        cfg, cam, raw, radius, invalid, _ = _frame(dev, n=2000,
-                                                   scale_shift=1.0)
+        cfg, cam, raw, radius, invalid, _ = small_frame(
+            dev, n=2000, scale_shift=1.0)
         keys, _, _ = R.build_keys(raw, radius, invalid, cam, cfg)
         fused = keys.fused  # a 64x64 frame of 32x32 tiles: num_tiles 4
     else:
@@ -143,7 +135,7 @@ def test_tile_ranges_matches_plain(dev, case, num_tiles):
 
 @pytest.mark.parametrize("exact_cull", [False, True])
 def test_expand_matches_plain(dev, exact_cull):
-    cfg, cam, raw, radius, invalid, _ = _frame(dev)
+    cfg, cam, raw, radius, invalid, _ = small_frame(dev)
     args, kw = _expand_inputs(cfg, cam, raw, radius, invalid)
     assert kw["total"] > 0
     before = (expand.slot_keys.launches, expand.sorted_table.launches)
@@ -167,8 +159,8 @@ def test_expand_matches_plain(dev, exact_cull):
 def test_sorted_table_matches_plain(dev, tile, exact_cull, nonfinite):
     """K1b after the sort: equal to its plain version and to the pre-sort
     table gathered by the sort's permutation."""
-    cfg, cam, raw, radius, invalid, _ = _frame(dev, tile, n=2000,
-                                               scale_shift=1.0)
+    cfg, cam, raw, radius, invalid, _ = small_frame(
+        dev, tile, n=2000, scale_shift=1.0)
     args, kw = _expand_inputs(cfg, cam, raw, radius, invalid, nonfinite)
     fused, owner = expand.slot_keys(*args, **kw, exact_cull=exact_cull)
     fused_s, perm = torch.sort(fused, stable=True)
@@ -231,6 +223,24 @@ def test_render_graph_frame_is_the_capped_and_the_exact_frame(dev,
     assert int(r.over_cap) == 0
 
 
+@pytest.mark.cuda
+def test_a_frame_on_the_host_is_the_rounded_frame_in_its_own_pinned_block(
+        dev):
+    """``_to_frame`` from a card: the rounded uint8 frame bit for bit, in
+    page-locked memory; each held frame keeps its own block."""
+    from taichi_3d_gaussian_splatting_tpu_torch.apps import render
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rgbs = [torch.rand((544, 960, 3), generator=g, device=dev)
+            for _ in range(3)]
+    held = [render.GaussianPointRenderer._to_frame(x) for x in rgbs]
+    for x, got in zip(rgbs, held):
+        want = torch.round(x * 255).to(torch.uint8).cpu().numpy()
+        assert got.dtype == np.uint8 and np.array_equal(got, want)
+        assert torch.from_numpy(got).is_pinned()
+    assert len({a.ctypes.data for a in held}) == 3
+
+
 ATTR_TOL = dict(rtol=2e-6, atol=1e-6, equal_nan=True)
 # a camera pose in the world and three per-object poses (xyzw, t)
 POSE = (np.asarray([0.05, -0.02, 0.01, 1.0], np.float32) / np.float32(
@@ -249,22 +259,7 @@ def _attr_scene(kind, n=160):
     of n points (60% in a box in front of the camera, the rest on a shell
     behind and beside it; ``_attr_args`` takes 200,000 by default)."""
     if kind == "truck":
-        rng = np.random.default_rng(20_000_003)
-        vis = rng.random(n) < 0.6
-        theta = rng.uniform(0.6 * np.pi, 1.4 * np.pi, n)
-        rad = rng.uniform(5.0, 30.0, n)
-        xyz = np.where(vis[:, None], np.stack(
-            [rng.uniform(-8, 8, n), rng.uniform(-4, 4, n),
-             rng.uniform(1, 30, n)], -1), np.stack(
-            [rad * np.sin(theta), rng.uniform(-4, 4, n),
-             rad * np.cos(theta)], -1)).astype(np.float32)
-        feats = np.empty((n, 56), np.float32)
-        q = rng.normal(size=(n, 4))
-        feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
-        feats[:, 4:7] = rng.uniform(-4.5, -2.0, (n, 3))
-        feats[:, 7] = rng.uniform(-2.0, 3.0, n)
-        feats[:, 8:] = rng.normal(size=(n, 48)) * 0.3
-        return xyz, feats, np.zeros((n,), bool)
+        return make_truck_scene(n)
     xyz, feats, invalid = make_odd_scene(n)
     if kind == "nonfinite":
         for row, col, val in ((20, 0, np.nan), (21, 5, np.inf), (22, 7, np.nan),
@@ -373,9 +368,7 @@ def test_point_attributes_vjp_repeats_its_bits_on_a_truck_scene(dev):
     (each row is written once, nothing summed across threads), within the
     tolerance of autograd of the plain version."""
     xyz, feats, _, q, t, _ = _attr_args(dev, "truck", False, n=428_687)
-    K = torch.from_numpy(np.asarray(
-        [[580.0, 0.0, 480.0], [0.0, 580.0, 272.0], [0.0, 0.0, 1.0]],
-        np.float32)).to(dev)
+    K = torch.from_numpy(make_K(960, 544, 580.0)).to(dev)
     cots = _vjp_cotangents(len(xyz), 428_687, dev)
     first = attrs.point_attributes_vjp(xyz, feats, q, t, K, 3, 0, None,
                                        *cots)
@@ -420,9 +413,7 @@ def test_rasterize_fwd_ctx_takes_the_kernel_pair_without_a_tape(dev):
 
 def test_point_attributes_matches_plain_on_a_truck_scene(dev):
     xyz, feats, _, q, t, _ = _attr_args(dev, "truck", False)
-    K = torch.from_numpy(np.asarray(
-        [[580.0, 0.0, 480.0], [0.0, 580.0, 272.0], [0.0, 0.0, 1.0]],
-        np.float32)).to(dev)
+    K = torch.from_numpy(make_K(960, 544, 580.0)).to(dev)
     with torch.no_grad():
         got = attrs.point_attributes(xyz, feats, q, t, K)
         want = attrs.point_attributes_plain(xyz, feats, q, t, K)
@@ -488,7 +479,7 @@ def test_point_attributes_graph_reads_the_pose_from_the_card(dev):
 @pytest.mark.parametrize("dense", [False, True])
 def test_blend_matches_plain(dev, tile, rgb_only, dense):
     # dense: larger, overlapping splats, so pixels saturate and stop early
-    cfg, cam, raw, radius, invalid, _ = _frame(
+    cfg, cam, raw, radius, invalid, _ = small_frame(
         dev, tile, n=2000 if dense else 200, scale_shift=1.0 if dense else 0.0)
     keys, table, _ = R.build_keys(raw, radius, invalid, cam, cfg)
     kw = dict(tile=tile, tiles_x=cam.width // tile[0],
@@ -512,7 +503,7 @@ def test_blend_matches_plain(dev, tile, rgb_only, dense):
 
 
 def test_rasterize_launches_every_kernel(dev):
-    cfg, cam, _, _, _, (xyz, feats, invalid) = _frame(dev)
+    cfg, cam, _, _, _, (xyz, feats, invalid) = small_frame(dev)
     counters = (attrs.point_attributes, expand.slot_keys,
                 expand.sorted_table, histogram.tile_ranges, blend.blend_forward)
     before = [f.launches for f in counters]
@@ -528,7 +519,7 @@ def test_rasterize_launches_every_kernel(dev):
                                   (48, 2)])
 @pytest.mark.parametrize("dense", [False, True])
 def test_blend_backward_matches_plain(dev, tile, dense):
-    cfg, cam, raw, radius, invalid, _ = _frame(
+    cfg, cam, raw, radius, invalid, _ = small_frame(
         dev, tile, n=2000 if dense else 200, scale_shift=1.0 if dense else 0.0)
     keys, table, _ = R.build_keys(raw, radius, invalid, cam, cfg)
     kw = dict(tile=tile, tiles_x=cam.width // tile[0],
@@ -582,27 +573,12 @@ def test_segment_reduce_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.fixture(scope="module")
-def first_design(dev):
-    """The first design's K1 and K5 (before their redesign), built from
-    kernel_variants/."""
-    path = Path(__file__).resolve().parent.parent / "kernel_variants"
-    spec = importlib.util.spec_from_file_location(
-        "keys_step0", path / "keys_step0.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    with tempfile.TemporaryDirectory() as tmp:
-        mod.build_v1(Path(tmp))
-        yield mod.FirstDesign(Path(tmp))
-
-
 @pytest.mark.parametrize("num_rows", [12, 2, 16])
 @pytest.mark.parametrize("long_every", [0, 50])
-def test_segment_reduce_sorted_matches_plain(dev, first_design, num_rows,
-                                             long_every):
+def test_segment_reduce_sorted_matches_plain(dev, num_rows, long_every):
     """K5 through a random inverse permutation: equal to its plain version
-    (the regroup, then the slot-order sum) and to the first design's
-    regroup + kernel, bit for bit."""
+    (the regroup, then the slot-order sum) and to the unsorted kernel on
+    the unpermuted rows, bit for bit."""
     rows, offsets, counts = _segments(dev, 4, long_every=long_every)
     rows = torch.cat([rows] * 2)[:num_rows].contiguous()
     rng = np.random.default_rng(9)
@@ -617,12 +593,18 @@ def test_segment_reduce_sorted_matches_plain(dev, first_design, num_rows,
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got, sr.segment_reduce(rows, offsets, counts),
                                rtol=0, atol=0)
-    first = first_design.segment_reduce(
-        tiling.regroup_rows_by_slot(sorted_rows, orig_slot), offsets, counts)
-    torch.testing.assert_close(got, first, rtol=0, atol=0)
 
 
-def test_train_step_launches_every_kernel(dev):
+def test_train_step_launches_every_kernel(dev, monkeypatch):
+    """One train step launches each kernel of its path once, and neither
+    the unsorted segment sum nor the regroup of the backward's rows to
+    pre-sort order (the segment sum reads them through the inverse key
+    permutation)."""
+    regroups = []
+    regroup = tiling.regroup_rows_by_slot
+    monkeypatch.setattr(tiling, "regroup_rows_by_slot",
+                        lambda *a, **kw: regroups.append(1) or regroup(
+                            *a, **kw))
     xyz, feats, invalid = make_scene(200, 7)
     config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
     state = trainer.init_train_state(
@@ -641,6 +623,7 @@ def test_train_step_launches_every_kernel(dev):
     # the step's attributes take the kernel pair, no autograd tape
     assert [f.launches - b
             for f, b in zip(counters, before)] == [1] * 6 + [0, 1, 1]
+    assert regroups == []
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
     assert float(aux["grad_features"].abs().max()) > 0
@@ -653,7 +636,8 @@ def test_capped_slot_keys_matches_plain(dev, exact_cull, cap_of_total):
     """K1a in its capped mode (the key total read from the device): equal
     to its capped plain version, with the capacity above, at and below the
     key total; its live slots are the exact mode's, the rest padding."""
-    cfg, cam, raw, radius, invalid, _ = _frame(dev, n=2000, scale_shift=1.0)
+    cfg, cam, raw, radius, invalid, _ = small_frame(dev, n=2000,
+                                                    scale_shift=1.0)
     args, kw = _expand_inputs(cfg, cam, raw, radius, invalid,
                               nonfinite=True)
     total = kw["total"]
@@ -674,6 +658,162 @@ def test_capped_slot_keys_matches_plain(dev, exact_cull, cap_of_total):
                                atol=0)
     assert bool((fused[live:] == kw["sentinel"]).all())
     assert bool((owner[live:] == 0).all())
+
+
+@pytest.fixture(scope="module")
+def full_frame(dev):
+    """The Truck cell's frame through the main path's stages: the 428,687
+    points of ``make_truck_scene`` from the identity pose at 960x544,
+    32x32 tiles, the exact tile cull; K1a's inputs as ``_expand_inputs``
+    gives them."""
+    xyz, feats, invalid = (torch.from_numpy(a).to(dev)
+                           for a in make_truck_scene(428_687))
+    cam = R.Camera(torch.from_numpy(make_K(960, 544, 580.0)).to(dev), 960,
+                   544)
+    cfg = R.RasterizerConfig(tile_size=32)
+    q, t = torch.from_numpy(Q_ID).to(dev), torch.from_numpy(T_ID).to(dev)
+    raw, radius = R.compute_raw_attrs(xyz, feats, q, t, cam)
+    args, kw = _expand_inputs(cfg, cam, raw, radius, invalid)
+    keys, table, _ = R.build_keys(raw, radius, invalid, cam, cfg)
+    return SimpleNamespace(
+        scene=(xyz, feats, invalid), q=q, t=t, cam=cam, cfg=cfg, args=args,
+        kw=dict(kw, exact_cull=cfg.exact_tile_cull), keys=keys, table=table,
+        num_tiles=30 * 17, blend_kw=dict(tile=(32, 32), tiles_x=30,
+                                         tiles_y=17))
+
+
+def test_keys_at_the_full_width_frame_match_plain(dev, full_frame):
+    """K1a, K1b, K2 and tile_counts at the full-width frame, bit for bit
+    their plain versions; the sorted table also the plain pre-sort table
+    gathered by the sort's permutation, and with the permutation and K2's
+    ranges the main path's; K2 also torch.searchsorted; K1a in its capped
+    mode (the key total read from the device) at 2^18 keys, below the
+    frame's total, and at the fitted capacity, its capped plain version."""
+    f = full_frame
+    att = f.args[5]
+    fused, owner = expand.slot_keys(*f.args, **f.kw)
+    fused_p, owner_p = expand.slot_keys_plain(*f.args, **f.kw)
+    fused_s, perm = torch.sort(fused, stable=True)
+    tkw = {k: f.kw[k] for k in ("tiles_u", "tile_w", "tile_h", "dbits",
+                                "sentinel")}
+    table = expand.sorted_table(fused_s, perm, owner, att, **tkw)
+    pairs = {
+        "K1a fused": (fused, fused_p), "K1a owner": (owner, owner_p),
+        "K1b table": (table, expand.sorted_table_plain(fused_s, perm, owner,
+                                                       att, **tkw)),
+        "pre-sort table gathered": (table, expand.expand_keys_plain(
+            *f.args, **f.kw)[1].index_select(1, perm)),
+        "main path's table": (table, f.table),
+        "main path's orig_slot": (perm, f.keys.orig_slot)}
+    dbits, fused_m = f.kw["dbits"], f.keys.fused
+    bounds = histogram.tile_ranges(fused_m, dbits, f.num_tiles)
+    pairs.update({
+        "K2": (bounds, histogram.tile_ranges_plain(fused_m, dbits,
+                                                   f.num_tiles)),
+        "K2 against torch.searchsorted": (bounds, torch.searchsorted(
+            (fused_m >> dbits).contiguous(), torch.arange(
+                f.num_tiles + 1, dtype=torch.int32, device=dev)).int()),
+        "K2 against the main path's ranges": (bounds, torch.cat(
+            [f.keys.tile_start, f.keys.tile_end[-1:]]))})
+    counts = torch.full((3,), -1, dtype=torch.int64, device=dev)
+    counts_p = torch.empty(3, dtype=torch.int64, device=dev)
+    histogram.tile_counts(bounds, counts)
+    histogram.tile_counts_plain(bounds, counts_p)
+    pairs["tile_counts"] = (counts, counts_p)
+    total = f.kw["total"]
+    assert total > 2 ** 18
+    key_total = torch.tensor(total, dtype=torch.int64, device=dev)
+    for cap in (2 ** 18, trainer.fit_key_cap(total)):
+        kw = dict(f.kw, total=cap)
+        got = expand.slot_keys(*f.args, **kw, key_total=key_total)
+        want = expand.slot_keys_plain(*f.args, **kw, key_total=key_total)
+        pairs[f"capped K1a fused at {cap}"] = (got[0], want[0])
+        pairs[f"capped K1a owner at {cap}"] = (got[1], want[1])
+    assert [n for n, (a, b) in pairs.items() if not torch.equal(a, b)] == []
+    assert 0 < int(bounds[-1]) <= total
+
+
+def test_point_attributes_at_the_full_width_frame_are_the_plain_bits(
+        dev, full_frame):
+    """The attribute kernel at the full-width frame: every field bit for
+    bit its plain version's, NaN where it has NaN."""
+    f = full_frame
+    xyz, feats, _ = f.scene
+    with torch.no_grad():
+        got = attrs.point_attributes(xyz, feats, f.q, f.t, f.cam.K)
+        want = attrs.point_attributes_plain(xyz, feats, f.q, f.t, f.cam.K)
+    for g, w in zip(got, want):
+        assert bool((torch.eq(g, w) | (g.isnan() & w.isnan())).all())
+
+
+@pytest.mark.parametrize("rgb_only", [True, False])
+def test_blend_at_the_full_width_frame_matches_plain(dev, full_frame,
+                                                      rgb_only):
+    """K3 at the full-width frame within the image gates of its plain
+    version, the count differing on under 0.01% of the pixels; the main
+    path's full-output frame within them of the plain blend of its
+    keys."""
+    f = full_frame
+    k = f.keys
+    got = blend.blend_forward(f.table, k.tile_start, k.tile_end,
+                              rgb_only=rgb_only, **f.blend_kw)
+    want = blend.blend_forward_plain(f.table, k.tile_start, k.tile_end,
+                                     rgb_only=rgb_only, **f.blend_kw)
+    torch.testing.assert_close(got[..., 0:3], want[..., 0:3], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(got[..., 6], want[..., 6], rtol=0, atol=1e-4)
+    if rgb_only:
+        return
+    depth = lambda o: o[..., 3] / torch.clamp_min(o[..., 4], 1e-6)  # noqa: E731
+    torch.testing.assert_close(depth(got), depth(want), rtol=0, atol=5e-4)
+    assert int((got[..., 5] != want[..., 5]).sum()) <= 1e-4 * 960 * 544
+    out = R.rasterize(*f.scene, f.q, f.t, f.cam, f.cfg)
+    plain = R._assemble(want, f.cam, f.cfg)
+    for name, atol in (("rgb", 1e-4), ("alpha", 1e-4), ("depth", 5e-4)):
+        torch.testing.assert_close(getattr(out, name), getattr(plain, name),
+                                   rtol=0, atol=atol)
+    assert int((out.count != plain.count).sum()) <= 1e-4 * 960 * 544
+    assert bool(torch.isfinite(out.rgb).all()) and float(out.rgb.max()) > 0
+
+
+def test_blend_backward_and_segment_sum_at_the_full_width_frame(dev,
+                                                                 full_frame):
+    """K4 at the full-width frame with a seeded image cotangent and the
+    forward's rgb: two runs bit for bit; its count differing from its plain
+    version's on under 0.01% of the live keys, its rows within the
+    gradient gate on the others, the |grad_uv| image within 1e-4, the
+    unused rows zero. K5 on its rows through the inverse permutation: bit
+    for bit its plain version and the unsorted kernel on the regrouped
+    rows."""
+    f = full_frame
+    k = f.keys
+    cfin = blend.blend_forward(f.table, k.tile_start, k.tile_end,
+                               rgb_only=True, **f.blend_kw)
+    cfin = cfin[..., 0:3].contiguous()
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(cfin.shape)).astype(np.float32)).to(dev)
+    args = (f.table, k.tile_start, k.tile_end, g, cfin)
+    got, img = blend.blend_backward(*args, **f.blend_kw)
+    again, img2 = blend.blend_backward(*args, **f.blend_kw)
+    assert torch.equal(got, again) and torch.equal(img, img2)
+    want, img_p = blend.blend_backward_plain(*args, **f.blend_kw)
+    live = int(k.tile_end[-1])
+    same = got[11, :live] == want[11, :live]
+    assert int((~same).sum()) <= 1e-4 * live
+    rows = [0, 1, 2, 3, 4, 5, 6, 7, 8, 10]
+    excess = ((got[rows] - want[rows]).abs()
+              - (5e-4 + 1e-3 * want[rows].abs()))[:, :live][:, same]
+    assert float(excess.max()) <= 0
+    torch.testing.assert_close(img, img_p, rtol=0, atol=1e-4)
+    assert float(got[[9, 12, 13, 14, 15]].abs().max()) == 0.0
+    assert float(want[11].sum()) > 0
+    rows = got[0:12]
+    inv = tiling.inverse_permutation(k.orig_slot)
+    seg = sr.segment_reduce_sorted(rows, inv, k.offsets, k.counts)
+    assert torch.equal(seg, sr.segment_reduce_sorted_plain(
+        rows, inv, k.offsets, k.counts))
+    assert torch.equal(seg, sr.segment_reduce(
+        tiling.regroup_rows_by_slot(rows, k.orig_slot), k.offsets, k.counts))
 
 
 def test_window_graph_equals_eager_steps(dev):
@@ -714,8 +854,11 @@ def test_window_graph_equals_eager_steps(dev):
 
 def test_window_of_8_launches_the_attribute_pair_once_a_step(dev):
     """A captured window of 8 steps holds the attribute kernel and the
-    attribute-VJP kernel 8 times each: the wrappers count 8 in the eager
-    warm-up and 8 in the capture; a replay ticks no counter."""
+    attribute-VJP kernel 8 times each, and so every other kernel of the
+    step (K1a, K1b, K2, K3, K4, K5): the wrappers count 8 in the eager
+    warm-up and 8 in the capture, the tile counters 8 in the capture alone
+    (the warm-up fills none), and the unsorted segment sum none; a replay
+    ticks no counter (it replays the launches it captured)."""
     xyz, feats, invalid = make_scene(200, 7)
     config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
     state = trainer.init_train_state(
@@ -723,14 +866,19 @@ def test_window_of_8_launches_the_attribute_pair_once_a_step(dev):
     inputs = _window_inputs(dev, k=8)
     window = trainer.make_train_step(config, 64, 64, scan_steps=8,
                                      device=dev, key_cap=4096)
-    pair = (attrs.point_attributes, attrs.point_attributes_vjp)
-    before = [f.launches for f in pair]
+    counters = (attrs.point_attributes, attrs.point_attributes_vjp,
+                expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
+                blend.blend_forward, blend.blend_backward,
+                sr.segment_reduce_sorted, histogram.tile_counts,
+                sr.segment_reduce)
+    before = [f.launches for f in counters]
     state = window(state, *inputs, 3)[0]
     assert (window.mode, window.captures) == ("graph", 1)
-    assert [f.launches - b for f, b in zip(pair, before)] == [16, 16]
-    before = [f.launches for f in pair]
+    assert [f.launches - b for f, b in zip(counters, before)] == (
+        [16] * 8 + [8, 0])
+    before = [f.launches for f in counters]
     got = window(state, *inputs, 3)[0]
-    assert [f.launches - b for f, b in zip(pair, before)] == [0, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [0] * 10
     assert int(got.feat_opt.count) == 16
 
 
@@ -772,8 +920,9 @@ def test_dp_window_graph_over_nccl_equals_eager_dp_steps(dev):
     """make_dp_train_step(scan_steps=3) in a group of one over NCCL (in
     this process): the window is one CUDA graph holding its collectives,
     and a replay from a given state ends in the state and losses of three
-    eager capped data-parallel steps, bit for bit; the replayed state is
-    passed back as it is."""
+    eager capped data-parallel steps, bit for bit, and in the state of
+    three capped single-device steps on the same f32 targets; the replayed
+    state is passed back as it is."""
     import torch.distributed as dist
 
     from taichi_3d_gaussian_splatting_tpu_torch.parallel import (
@@ -790,6 +939,11 @@ def test_dp_window_graph_over_nccl_equals_eager_dp_steps(dev):
     gts, qs, ts, Ks = _window_inputs(dev)
     # one row a step, f32 targets (the trainer stages them so)
     views = [x[:, None] for x in (gts.float() / 255.0, qs, ts, Ks)]
+    single = trainer.make_train_step(config, 64, 64, device=dev,
+                                     key_cap=4096)
+    alone = state
+    for i in range(3):
+        alone = single(alone, *(v[i, 0] for v in views), 3)[0]
     dist.init_process_group(
         "nccl", init_method=f"tcp://127.0.0.1:{mh.free_port()}",
         world_size=1, rank=0)
@@ -809,9 +963,11 @@ def test_dp_window_graph_over_nccl_equals_eager_dp_steps(dev):
         assert [c.op for c in capped.collectives] == ["sum", "max"]
         torch.testing.assert_close(metrics["loss"], torch.stack(losses),
                                    rtol=0, atol=0)
-        for x, y in zip(checkpoint.state_leaves(got),
-                        checkpoint.state_leaves(eager)):
+        for x, y, z in zip(checkpoint.state_leaves(got),
+                           checkpoint.state_leaves(eager),
+                           checkpoint.state_leaves(alone)):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
+            torch.testing.assert_close(x, z, rtol=0, atol=0)
         again, _, _ = window(got, *views, 3)  # the static state itself
         assert again.scene.features.data_ptr() == got.scene.features.data_ptr()
         assert int(again.feat_opt.count) == 6

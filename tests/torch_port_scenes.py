@@ -1,8 +1,10 @@
 """Seeded numpy inputs shared by the port's tests (tests/test_torch_*.py).
 
-numpy only, so the card-only tests can use it on a machine without JAX.
+numpy only at import (``small_frame`` imports torch and the port when
+called), so the card-only tests can use it on a machine without JAX.
 The shapes are those of ``make_scene``/``make_camera`` in
-tests/test_rasterizer.py: 64x64 pixels and 100-200 points.
+tests/test_rasterizer.py: 64x64 pixels and 100-200 points; the card-only
+tests also take ``make_truck_scene`` at the Truck cell's 428,687 points.
 """
 import numpy as np
 
@@ -29,9 +31,51 @@ def make_scene(n=200, seed=7):
     return xyz, feats, invalid
 
 
-def make_K(w=64, h=64):
-    return np.asarray([[60.0, 0.0, w / 2], [0.0, 60.0, h / 2],
+def make_K(w=64, h=64, f=60.0):
+    return np.asarray([[f, 0.0, w / 2], [0.0, f, h / 2],
                        [0.0, 0.0, 1.0]], np.float32)
+
+
+def small_frame(dev, tile=(32, 32), n=200, seed=7, scale_shift=0.0):
+    """A 64x64 frame of ``make_scene(n, seed)`` (splat log-scales shifted
+    by ``scale_shift``) at the identity pose, on ``dev``: (cfg, camera, raw
+    attributes, radius, invalid, (xyz, features, invalid))."""
+    import torch
+
+    from taichi_3d_gaussian_splatting_tpu_torch.ops import rasterizer as R
+
+    xyz, feats, invalid = make_scene(n, seed)
+    feats[:, 4:7] += scale_shift
+    cfg = R.RasterizerConfig(tile_size=tile[0], tile_h=tile[1])
+    cam = R.Camera(torch.from_numpy(make_K()).to(dev), 64, 64)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    raw, radius = R.compute_raw_attrs(to(xyz), to(feats), to(Q_ID), to(T_ID),
+                                      cam)
+    return cfg, cam, raw, radius, to(invalid), (to(xyz), to(feats),
+                                                to(invalid))
+
+
+def make_truck_scene(n, seed=20_000_003):
+    """(xyz, features, invalid) of a seeded Truck-like scene of n points: 60%
+    in a box in front of the identity camera, the rest on a shell behind
+    and beside it, splats sized to cover a handful of pixels at street
+    depth (seen by ``make_K(960, 544, 580.0)``)."""
+    rng = np.random.default_rng(seed)
+    vis = rng.random(n) < 0.6
+    theta = rng.uniform(0.6 * np.pi, 1.4 * np.pi, n)
+    rad = rng.uniform(5.0, 30.0, n)
+    xyz = np.where(vis[:, None], np.stack(
+        [rng.uniform(-8, 8, n), rng.uniform(-4, 4, n),
+         rng.uniform(1, 30, n)], -1), np.stack(
+        [rad * np.sin(theta), rng.uniform(-4, 4, n),
+         rad * np.cos(theta)], -1)).astype(np.float32)
+    feats = np.empty((n, 56), np.float32)
+    q = rng.normal(size=(n, 4))
+    feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    feats[:, 4:7] = rng.uniform(-4.5, -2.0, (n, 3))
+    feats[:, 7] = rng.uniform(-2.0, 3.0, n)
+    feats[:, 8:] = rng.normal(size=(n, 48)) * 0.3
+    return xyz, feats, np.zeros((n,), bool)
 
 
 def make_odd_scene(n=160, seed=3):
