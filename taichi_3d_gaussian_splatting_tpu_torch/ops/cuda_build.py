@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("histogram", "expand", "blend", "blend_backward",
-                  "segment_reduce", "stage_mark", "attributes")
+                  "segment_reduce", "stage_mark", "attributes", "adam")
 
 _loaded: dict = {}
 

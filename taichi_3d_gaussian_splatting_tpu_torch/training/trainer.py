@@ -10,8 +10,9 @@ SSIM loss, the backward (``rasterize_bwd``: the blend_backward kernel, the
 segment_reduce kernel reading its sorted rows through the inverse key
 permutation, the attributes' VJP: the kernel on a card, autograd on the
 CPU and with pose refinement), the grad factors, one Adam on
-the features and one on the positions (staircase-decayed learning rate),
-and ``controller.accumulate``. It returns a new state and leaves its input as
+the features and one on the positions (staircase-decayed learning rate;
+both one launch of ``csrc/adam.cu`` on a card, ``adam_update``), and
+``controller.accumulate``. It returns a new state and leaves its input as
 it was. With ``pose_refinement`` the step also refines the camera pose of
 the view it trains on: the pose is composed with that view's se(3) delta
 (``TrainState.pose_deltas``), the rasterizer returns the pose cotangent,
@@ -37,7 +38,9 @@ gloo they run in a loop (``window_mode``).
 Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected,
 the update added as ``p - lr * mu_hat / (sqrt(nu_hat) + eps)``. Its update
 count, the learning rate's staircase and the pose row are device tensors,
-so no host value of the step is baked into a captured graph.
+so no host value of the step is baked into a captured graph. On a card
+the kernel runs the formula as one pass over both leaves, rounded as the
+plain formula (``Adam.update_plain``, the CPU path) rounds it there.
 
 ``GaussianPointCloudTrainer`` drives the steps: progressive downsample,
 SH-band schedule, densify/prune after warm-up, alpha reset, validation
@@ -57,6 +60,7 @@ same keys; they are accepted and have no effect here.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import os
 import time
@@ -79,7 +83,7 @@ from taichi_3d_gaussian_splatting_tpu_torch.ops.rasterizer import (
     rasterize_bwd,
     rasterize_fwd_ctx,
 )
-from taichi_3d_gaussian_splatting_tpu_torch.ops import stages
+from taichi_3d_gaussian_splatting_tpu_torch.ops import cuda_build, stages
 from taichi_3d_gaussian_splatting_tpu_torch.ops.transforms import (
     apply_pose_delta,
     quaternion_to_rotation_matrix,
@@ -207,7 +211,13 @@ class Adam:
 
     def update(self, grad: torch.Tensor, state: AdamState,
                param: torch.Tensor):
-        """Returns (new param, new state)."""
+        """Returns (new param, new state): :func:`adam_update` of this one
+        leaf (the kernel on a card, :meth:`update_plain` on the CPU)."""
+        return adam_update(((self, grad, state, param),))[0]
+
+    def update_plain(self, grad: torch.Tensor, state: AdamState,
+                     param: torch.Tensor):
+        """The plain formula of :meth:`update`: (new param, new state)."""
         count = state.count + 1
         mu = (1.0 - self.b1) * grad + self.b1 * state.mu
         nu = (1.0 - self.b2) * (grad * grad) + self.b2 * state.nu
@@ -216,6 +226,103 @@ class Adam:
         u = _over(mu, bc1) / (torch.sqrt(_over(nu, bc2)) + self.eps)
         new_param = param + (-self.lr(state.count)) * u
         return new_param, AdamState(mu, nu, count)
+
+
+
+class _AdamLeaf(ctypes.Structure):
+    """``AdamLeaf`` of ``csrc/adam.cu``: one leaf's streams, count, bias
+    tables and rate, and the formula's f32 constants."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "grad", "param", "mu", "nu", "param_out", "mu_out", "nu_out",
+        "count", "count_out", "bias1", "bias2", "lr")]
+        + [(name, ctypes.c_longlong) for name in ("n", "vec4", "units")]
+        + [("len1", ctypes.c_int), ("len2", ctypes.c_int)]
+        + [(name, ctypes.c_float) for name in (
+            "c1", "b1", "c2", "b2", "eps", "neg_lr")])
+
+
+def _check_adam_leaf(grad, state: AdamState, param) -> None:
+    """Raise on a leaf the kernel does not take: every stream f32,
+    contiguous and of the parameter's shape and device; the count a ()
+    int64 tensor there."""
+    cuda_build.require(param, "param", torch.float32, param.dim())
+    for name, t in (("grad", grad), ("mu", state.mu), ("nu", state.nu)):
+        cuda_build.require(t, name, torch.float32, param.dim())
+        if t.shape != param.shape or t.device != param.device:
+            raise ValueError(f"{name}: need {tuple(param.shape)} on "
+                             f"{param.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+    count = state.count
+    if (not isinstance(count, torch.Tensor) or count.dtype != torch.int64
+            or count.dim() != 0 or count.device != param.device):
+        raise ValueError(f"count: need a () int64 tensor on {param.device}")
+
+
+def _adam_leaf(tx: Adam, grad, state: AdamState, param, outs) -> _AdamLeaf:
+    """The kernel's description of one leaf, writing into ``outs`` (new
+    param, mu, nu, count). Its f32 constants are the casts of the Python
+    doubles :meth:`Adam.update_plain` multiplies by, as PyTorch casts a
+    Python scalar for an f32 tensor; the rate is ``neg_lr`` where it is a
+    host float, else read from its () device tensor."""
+    lr = tx.lr(state.count)
+    streams = (grad, param, state.mu, state.nu) + tuple(outs[:3])
+    n = param.numel()
+    vec4 = n // 4 if all(t.data_ptr() % 16 == 0 for t in streams) else 0
+    bias1 = _bias_table(tx.b1, param.device)
+    bias2 = _bias_table(tx.b2, param.device)
+    f = np.float32
+    leaf = _AdamLeaf(
+        *(t.data_ptr() for t in streams), state.count.data_ptr(),
+        outs[3].data_ptr(), bias1.data_ptr(), bias2.data_ptr(),
+        lr.data_ptr() if isinstance(lr, torch.Tensor) else None,
+        n, vec4, vec4 + (n - 4 * vec4), bias1.shape[0], bias2.shape[0],
+        *(float(f(d)) for d in (1.0 - tx.b1, tx.b1, 1.0 - tx.b2, tx.b2,
+                                tx.eps, -tx.lr0)))
+    leaf.rate = lr  # read by pointer: alive until the launch is queued
+    return leaf
+
+
+def adam_update_plain(leaves) -> list:
+    """Plain version of :func:`adam_update` (same contract)."""
+    return [tx.update_plain(grad, state, param)
+            for tx, grad, state, param in leaves]
+
+
+def adam_update(leaves) -> list:
+    """Adam's update of one or two leaves ``(adam, grad, state, param)``:
+    [(new param, new state)] in their order, new tensors; the inputs are
+    left as they were. The leaves are checked on either device. On a card
+    one launch of ``adam_update_kernel`` (``csrc/adam.cu``) for all of
+    them, equal to :meth:`Adam.update_plain` bit for bit, with no host
+    sync; CPU tensors go to :func:`adam_update_plain`."""
+    leaves = tuple(leaves)
+    if not 1 <= len(leaves) <= 2:
+        raise ValueError(f"adam_update takes 1 or 2 leaves, got {len(leaves)}")
+    dev = leaves[0][3].device
+    for _, grad, state, param in leaves:
+        _check_adam_leaf(grad, state, param)
+        if param.device != dev:
+            raise ValueError("adam_update: leaves lie on different devices")
+    if dev.type == "cpu":
+        return adam_update_plain(leaves)
+    out, descs = [], []
+    for tx, grad, state, param in leaves:
+        outs = [torch.empty_like(param) for _ in range(3)] + [
+            torch.empty_like(state.count)]
+        descs.append(_adam_leaf(tx, grad, state, param, outs))
+        out.append((outs[0], AdamState(outs[1], outs[2], outs[3])))
+    launch = cuda_build.bind("adam", "adam_update_launch", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    array = (_AdamLeaf * len(descs))(*descs)
+    err = launch(ctypes.addressof(array), len(descs),
+                 cuda_build.stream_of(leaves[0][3]))
+    adam_update.launches += 1
+    cuda_build.check(err, "adam_update")
+    return out
+
+
+adam_update.launches = 0
 
 
 def make_optimizers(config: TrainConfig):
@@ -390,9 +497,9 @@ def apply_grads(state: TrainState, optimizers, d_xyz: torch.Tensor,
     feature_tx, position_tx = optimizers
     scene = state.scene
     with torch.no_grad():
-        features, feat_opt = feature_tx.update(d_features, state.feat_opt,
-                                               scene.features)
-        xyz, pos_opt = position_tx.update(d_xyz, state.pos_opt, scene.xyz)
+        (features, feat_opt), (xyz, pos_opt) = adam_update((
+            (feature_tx, d_features, state.feat_opt, scene.features),
+            (position_tx, d_xyz, state.pos_opt, scene.xyz)))
     pose_deltas, pose_opt = pose or (state.pose_deltas, state.pose_opt)
     return TrainState(
         scene=scene._replace(features=features, xyz=xyz), feat_opt=feat_opt,

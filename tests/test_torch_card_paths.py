@@ -152,7 +152,8 @@ def plain_route(monkeypatch):
              (histogram, "tile_ranges", histogram.tile_ranges_plain),
              (blend, "blend_forward", blend.blend_forward_plain),
              (blend, "blend_backward", blend.blend_backward_plain),
-             (R, "segment_reduce_sorted", sr.segment_reduce_sorted_plain)]
+             (R, "segment_reduce_sorted", sr.segment_reduce_sorted_plain),
+             (T, "adam_update", T.adam_update_plain)]
 
     @contextlib.contextmanager
     def route():

@@ -263,7 +263,7 @@ def test_wrappers_check_shapes():
 COUNTERS = (histogram.tile_ranges, expand.slot_keys, expand.sorted_table, blend.blend_forward,
             blend.blend_backward, sr.segment_reduce, sr.segment_reduce_sorted,
             attrs.point_attributes, attrs.point_attributes_vjp,
-            histogram.tile_counts)
+            histogram.tile_counts, trainer.adam_update)
 
 
 def test_point_attributes_refuses_a_gradient():

@@ -12,7 +12,8 @@ Tolerances: the key expansion (slot_keys, sorted_table), tile_ranges,
 tile_counts, the point-attributes kernel at the full-width frame and
 segment_reduce must match bit for bit (integer and copy kernels, the
 attribute kernel's rounding kept, and segment sums added in slot order
-like their plain versions); the sorted table also equals the pre-sort
+like their plain versions), and so must the Adam kernel (each operation
+of the plain formula rounded as PyTorch rounds it on the card); the sorted table also equals the pre-sort
 table gathered by the sort's permutation, and the segment sum through the
 inverse permutation equals the unsorted kernel on the regrouped rows; the
 blend kernel keeps a sequential transmittance
@@ -615,14 +616,16 @@ def test_train_step_launches_every_kernel(dev, monkeypatch):
     counters = (expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
                 blend.blend_forward, blend.blend_backward,
                 sr.segment_reduce_sorted, sr.segment_reduce,
-                attrs.point_attributes, attrs.point_attributes_vjp)
+                attrs.point_attributes, attrs.point_attributes_vjp,
+                trainer.adam_update)
     before = [f.launches for f in counters]
     new, metrics, aux = step(state, gt, torch.from_numpy(Q_ID).to(dev),
                              torch.from_numpy(T_ID).to(dev),
                              torch.from_numpy(make_K()).to(dev), 3)
-    # the step's attributes take the kernel pair, no autograd tape
+    # the step's attributes take the kernel pair, no autograd tape; both
+    # Adams are one launch
     assert [f.launches - b
-            for f, b in zip(counters, before)] == [1] * 6 + [0, 1, 1]
+            for f, b in zip(counters, before)] == [1] * 6 + [0, 1, 1, 1]
     assert regroups == []
     assert np.isfinite(float(metrics["loss"]))
     assert bool(torch.isfinite(aux["grad_features"]).all())
@@ -855,10 +858,11 @@ def test_window_graph_equals_eager_steps(dev):
 def test_window_of_8_launches_the_attribute_pair_once_a_step(dev):
     """A captured window of 8 steps holds the attribute kernel and the
     attribute-VJP kernel 8 times each, and so every other kernel of the
-    step (K1a, K1b, K2, K3, K4, K5): the wrappers count 8 in the eager
-    warm-up and 8 in the capture, the tile counters 8 in the capture alone
-    (the warm-up fills none), and the unsorted segment sum none; a replay
-    ticks no counter (it replays the launches it captured)."""
+    step (K1a, K1b, K2, K3, K4, K5, the one launch of both Adams): the
+    wrappers count 8 in the eager warm-up and 8 in the capture, the tile
+    counters 8 in the capture alone (the warm-up fills none), and the
+    unsorted segment sum none; a replay ticks no counter (it replays the
+    launches it captured)."""
     xyz, feats, invalid = make_scene(200, 7)
     config = TrainConfig(rasterisation_config=R.RasterizerConfig(tile_size=32))
     state = trainer.init_train_state(
@@ -870,15 +874,15 @@ def test_window_of_8_launches_the_attribute_pair_once_a_step(dev):
                 expand.slot_keys, expand.sorted_table, histogram.tile_ranges,
                 blend.blend_forward, blend.blend_backward,
                 sr.segment_reduce_sorted, histogram.tile_counts,
-                sr.segment_reduce)
+                sr.segment_reduce, trainer.adam_update)
     before = [f.launches for f in counters]
     state = window(state, *inputs, 3)[0]
     assert (window.mode, window.captures) == ("graph", 1)
     assert [f.launches - b for f, b in zip(counters, before)] == (
-        [16] * 8 + [8, 0])
+        [16] * 8 + [8, 0, 16])
     before = [f.launches for f in counters]
     got = window(state, *inputs, 3)[0]
-    assert [f.launches - b for f, b in zip(counters, before)] == [0] * 10
+    assert [f.launches - b for f, b in zip(counters, before)] == [0] * 11
     assert int(got.feat_opt.count) == 16
 
 
@@ -1055,10 +1059,11 @@ def test_window_replays_its_graph_after_a_new_scene_and_a_new_band(dev):
 
 @pytest.mark.parametrize("which", [0, 1])  # features, positions
 def test_adam_on_the_card_equals_the_host_scalar_update(dev, which):
-    """On the card, Adam's update with its count on the device equals, bit
-    for bit, the update with host-float bias corrections and rate (which
-    PyTorch applies on the card as a multiply by the f32 reciprocal), over
-    counts 1-300 and 17,300-17,340, the rate decaying every 3 updates."""
+    """On the card, Adam's update (one launch of the kernel an update) with
+    its count on the device equals, bit for bit, the update with host-float
+    bias corrections and rate (which PyTorch applies on the card as a
+    multiply by the f32 reciprocal), over counts 1-300 and 17,300-17,340,
+    the rate decaying every 3 updates."""
     config = TrainConfig(feature_learning_rate=1e-2,
                          position_learning_rate=1e-3,
                          position_learning_rate_decay_interval=3)
@@ -1074,7 +1079,9 @@ def test_adam_on_the_card_equals_the_host_scalar_update(dev, which):
                                      * 10.0 ** rng.integers(-3, 3)).astype(
                                          np.float32)).to(dev)
             want, mu, nu = host_scalar_adam(tx, grad, state, param)
+            launches = trainer.adam_update.launches
             param, state = tx.update(grad, state, param)
+            assert trainer.adam_update.launches == launches + 1
             assert torch.equal(param, want), int(state.count)
             assert torch.equal(state.mu, mu) and torch.equal(state.nu, nu)
     # why the update divides through trainer._over: on the card a true
@@ -1084,3 +1091,53 @@ def test_adam_on_the_card_equals_the_host_scalar_update(dev, which):
     d = float(np.float32(1.0) - np.float32(0.999) ** np.float32(7))
     assert torch.equal(x / d, trainer._over(x, torch.tensor(d, device=dev)))
     assert not torch.equal(x / d, x / torch.tensor(d, device=dev))
+
+
+@pytest.mark.parametrize("count", [0, 1_000, 17_330])
+def test_adam_kernel_equals_the_plain_formula_at_full_width(dev, count):
+    """One launch updates both leaves of a 2,080,001-point pool (an odd N:
+    the positions' 6,240,003 values end in a scalar tail) and equals
+    ``Adam.update_plain`` on the card bit for bit: gradients from 1e-8 to
+    1e4 in magnitude and zero rows (some with zero moments), at a fresh
+    count, at 1,000, and past 17,321 where 0.999's bias correction reads
+    1.0, with the position rate decayed by its staircase (0.97 every 100).
+    A positions leaf that starts off a 16-byte boundary (the scalar path
+    throughout) equals it too."""
+    n = 2_080_001
+    txs = trainer.make_optimizers(TrainConfig())
+    assert txs[1].decay_interval == 100
+    gen = torch.Generator(device=dev).manual_seed(count)
+
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    leaves = []
+    for tx, w in zip(txs, (56, 3)):
+        mag = 10.0 ** torch.randint(-8, 5, (n, w), device=dev,
+                                    generator=gen).float()
+        grad = normal((n, w)) * mag
+        grad[: n // 10] = 0.0
+        mu, nu = normal((n, w), 1e-2) * mag, normal((n, w)) ** 2 * mag ** 2
+        mu[: n // 20] = 0.0
+        nu[: n // 20] = 0.0
+        state = trainer.AdamState(mu, nu, torch.tensor(
+            count, dtype=torch.int64, device=dev))
+        leaves.append((tx, grad, state, normal((n, w))))
+    before = trainer.adam_update.launches
+    got = trainer.adam_update(leaves)
+    assert trainer.adam_update.launches == before + 1
+    flat = torch.empty(n * 3 + 1, device=dev)
+    tx, grad, state, param = leaves[1]
+    off = flat[1:].view(n, 3)
+    off.copy_(param)
+    assert off.data_ptr() % 16
+    got.append(trainer.adam_update(((tx, grad, state, off),))[0])
+    leaves.append(leaves[1])
+    for (tx, grad, state, param), (p, s) in zip(leaves, got):
+        want_p, want_s = tx.update_plain(grad, state, param)
+        assert int(s.count) == int(want_s.count) == count + 1
+        assert torch.equal(p, want_p)
+        assert torch.equal(s.mu, want_s.mu) and torch.equal(s.nu, want_s.nu)
+        assert bool(torch.isfinite(p).all())
+    if count:
+        assert float(txs[1].lr(leaves[1][2].count)) < txs[1].lr0
